@@ -143,14 +143,17 @@ def test_render_launches_no_kernel_on_cpu():
 
 
 def test_unported_paths_raise():
-    """Map-mode shadows, lock-view, eye adaptation, screen bands and
-    pipeline reload point to ROADMAP.md instead of rendering."""
+    """Two-phase rasterization, lock-view, eye adaptation, screen bands
+    and pipeline reload point to ROADMAP.md instead of rendering."""
     import dataclasses
 
     import pytest
 
+    from vrenderer_tpu_torch.config import RasterSettings
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_renderer_cfg(dataclasses.replace(CFG, shadow_mode="map"))
+        _port_renderer_cfg(dataclasses.replace(
+            CFG, raster=RasterSettings(two_phase=True)))
     r = _port_renderer()
     _, cam = cameras(GOLDEN_EYE, GOLDEN_TARGET)
     _, params = frame_params_pair()

@@ -1,8 +1,9 @@
-"""The semantics the rasterizer keeps on every device: min z with ties to
+"""The semantics the rasterizers keep on every device: min z with ties to
 the lowest id, -0.0 tying +0.0, NaN and invalid triangles never covering,
-the inclusive bbox scissor, the wrapper's checks and launch count; and on
-the card, the CUDA kernel equal to its plain version on whole frames' raster
-inputs.
+the inclusive bbox scissor, the wrappers' checks and launch counts, the
+depth-only raster's z equal to the full raster's with an F32_FAR (never
+NaN) background; and on the card, the CUDA kernels B1 and B2 equal to
+their plain versions on whole frames' raster and light-view inputs.
 
 CPU cases run the plain version; CUDA cases (marker ``cuda``) launch the
 kernel and skip where there is no card. The file imports no JAX, so on the
@@ -132,14 +133,80 @@ def test_wrapper_validates_and_counts_only_kernel_launches(device):
             items=work.items.to(other)), W, H)
 
 
-def _golden_renderer(device):
-    """tests/test_golden.py's configuration."""
+_TIE_CASES = [
+    [_full_frame_triangle(0.5), _full_frame_triangle(0.5)],
+    [_full_frame_triangle(0.0), np.array([0, 0, 1, 0, 0, 1, 0, 0, 1, -0.0,
+                                          -0.0, -0.0], np.float32)],
+    [_full_frame_triangle(0.5), _full_frame_triangle(0.25)],
+]
+
+
+@pytest.mark.parametrize("case", range(len(_TIE_CASES)))
+def test_depth_raster_is_full_z_with_far_background(device, case):
+    """z of the depth-only raster equals the full raster's, -0.0 comes out
+    +0.0, and pixels outside the scissored bbox hold exactly F32_FAR."""
+    bbox = np.array([[0, 0, W - 1, H - 1], [10, 3, 40, 90]], np.float32)
+    packed = _packed(np.stack(_TIE_CASES[case]), bbox, np.array([True, True]),
+                     device)
+    work = raster_cuda.full_work_list(2, W, H, device=device)
+    z = raster_cuda.rasterize_depth(packed.vis, work, W, H)
+    z_full = raster_cuda.rasterize(packed, work, W, H)[0]
+    assert torch.equal(z, z_full)
+    z = z.cpu().numpy()
+    assert not np.signbit(z).any() and not np.isnan(z).any()
+    # only the first triangle, scissored to its bbox
+    packed = _packed(np.stack(_TIE_CASES[case]), bbox[::-1].copy(),
+                     np.array([True, False]), device)
+    z = raster_cuda.rasterize_depth(packed.vis, work, W, H).cpu().numpy()
+    inside = np.zeros((H, W), bool)
+    inside[3:91, 10:41] = True
+    assert np.all(z[~inside] == raster_cuda.F32_FAR)
+    assert np.all(z[inside] < 2.0)
+
+
+def test_depth_raster_nan_and_invalid_triangles_never_cover(device):
+    full = np.array([0, 0, W - 1, H - 1], np.float32)
+    nan_edge = _full_frame_triangle(0.5)
+    nan_edge[0] = np.nan
+    nan_z = _full_frame_triangle(np.nan)
+    planes = np.stack([nan_edge, nan_z, _full_frame_triangle(0.5),
+                       _full_frame_triangle(0.6)])
+    bbox = np.stack([full, full, np.full(4, np.nan, np.float32), full])
+    packed = _packed(planes, bbox, np.array([True, True, True, False]),
+                     device)
+    z = raster_cuda.rasterize_depth(
+        packed.vis, raster_cuda.full_work_list(4, W, H, device=device), W, H)
+    assert torch.all(z == raster_cuda.F32_FAR)
+
+
+def test_depth_wrapper_validates_and_counts_only_kernel_launches(device):
+    full = np.array([[0, 0, W - 1, H - 1]], np.float32)
+    vis = _packed(_full_frame_triangle(0.5)[None], full, np.array([True]),
+                  device).vis
+    work = raster_cuda.full_work_list(1, W, H, device=device)
+    before = raster_cuda.rasterize_depth.launches
+    raster_cuda.rasterize_depth(vis, work, W, H)
+    assert raster_cuda.rasterize_depth.launches == before + (
+        device.type == "cuda")
+    bad = [(vis.double(), work), (vis, work._replace(
+        items=work.items.to(torch.int64))),
+        (torch.zeros((1, 1, 32), device=device)[..., ::2], work),
+        (vis, work._replace(items=work.items.to(
+            "cpu" if device.type == "cuda" else "meta")))]
+    for v, w in bad:
+        with pytest.raises(ValueError):
+            raster_cuda.rasterize_depth(v, w, W, H)
+
+
+def _golden_renderer(device, **cfg_kw):
+    """tests/test_golden.py's configuration (``cfg_kw``: map mode)."""
     from vrenderer_tpu_torch.config import FrameConfig, TerrainSettings
     from vrenderer_tpu_torch.renderer import Renderer
     from vrenderer_tpu_torch.terrain import heightmap as hmod
 
     cfg = FrameConfig(width=W, height=H, terrain=TerrainSettings(
-        surface_size=64, world_size=64, max_instances=64, grid_size=8))
+        surface_size=64, world_size=64, max_instances=64, grid_size=8),
+        **cfg_kw)
     hm = hmod.procedural_heightmap(64, seed=7, device=device)
     return Renderer(cfg, hm, hmod.procedural_albedo(hm), device=device)
 
@@ -172,3 +239,39 @@ def test_cuda_kernel_matches_plain_on_frame_inputs(cuda_device, eye, target):
     assert torch.equal(out[1], ref[1])
     assert torch.equal(out[0], ref[0])
     assert torch.equal(out[2], ref[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eye,target", [
+    ([0.0, 25.0, 45.0], [0.0, 0.0, 0.0]),
+    ([25.0, 8.0, 25.0], [-10.0, 2.0, -10.0]),
+])
+def test_cuda_depth_kernel_matches_plain_on_light_inputs(cuda_device, eye,
+                                                         target):
+    """Kernel B2 on a map-mode light pass's inputs: z equal to its plain
+    version and to kernel B1's z channel (both min-merge exact z)."""
+    from vrenderer_tpu_torch.camera import Camera
+    from vrenderer_tpu_torch.renderer import FrameParams
+
+    def v(x):
+        return torch.tensor(x, dtype=torch.float32, device=cuda_device)
+
+    res = 256
+    r = _golden_renderer(cuda_device, shadow_mode="map",
+                         shadow_resolution=res)
+    params = FrameParams.default(device=cuda_device)._replace(
+        max_height=v(12.0))
+    vis, work = r.light_raster_inputs(
+        Camera(v(eye), v(target), v([0.0, 1.0, 0.0])), params)
+    ref = raster_cuda.rasterize_depth_plain(vis, work, res, res)
+    before = raster_cuda.rasterize_depth.launches
+    z = raster_cuda.rasterize_depth(vis, work, res, res)
+    torch.cuda.synchronize()
+    assert raster_cuda.rasterize_depth.launches == before + 1
+    assert (z < 2.0).float().mean() > 0.2
+    assert torch.equal(z, ref)
+    coef = torch.zeros(vis.shape[:2] + (raster_cuda.NUM_COEF,),
+                       device=cuda_device)
+    z_full = raster_cuda.rasterize(raster_cuda.PackedTris(vis, coef), work,
+                                   res, res)[0]
+    assert torch.equal(z, z_full)

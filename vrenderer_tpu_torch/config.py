@@ -94,7 +94,8 @@ class FrameConfig:
     z_near: float = 0.1
     z_far: float = 10000.0
     shadow_resolution: int = 2048
-    # "horizon" is ported; "map" (light-view depth raster) is not yet
+    # "horizon" (height-field march) or "map" (depth-only light-view
+    # raster, kernel B2, with comparison-filtered sampling)
     shadow_mode: str = "horizon"
     shadow_select: str = "main"
     shadow_lod_bias: int = 0

@@ -67,6 +67,16 @@ def selected_instances(position, extents, lod, valid, count,
     )
 
 
+def shadow_prepass(depth, wtc, z_range, overflow, shear, device=None):
+    """The map-mode prepass tuple (``Renderer.shadow_prepass``) from the
+    JAX package's: depth (R, R), world->clip (4, 4), z range, overflow flag
+    and the shear (kx, kz, span_x, span_z)."""
+    return (tensor(np.asarray(depth, np.float32), device),
+            tensor(np.asarray(wtc, np.float32), device), float(z_range),
+            tensor(np.asarray(overflow, np.int32), device),
+            tuple(tensor(np.asarray(v, np.float32), device) for v in shear))
+
+
 def scene(instances: Sequence[Mapping[str, Any]],
           light: Optional[Mapping[str, Any]] = None, device=None) -> Scene:
     """Scene from per-instance dicts with ``positions``, ``normals``,

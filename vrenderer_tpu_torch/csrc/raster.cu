@@ -1,31 +1,40 @@
-// Binned visibility-buffer triangle rasterizer for Hopper (sm_90a).
+// Binned triangle rasterizers for Hopper (sm_90a).
 //
-// Replaces the TPU kernel vrenderer_tpu/ops/raster_pallas.py
+// B1, `vrt_raster`, replaces the TPU kernel vrenderer_tpu/ops/raster_pallas.py
 // `_raster_kernel` (full variant), launched by `rasterize_pallas`. Same
 // result: per pixel the minimum z over covered triangles, ties to the
 // lowest global id inst * T + t, then the winner's inv_w and 8 attr/w
 // planes evaluated at the pixel centre and divided by the guarded inv_w.
 //
-// Design (two launches on the caller's stream):
-//   1. visibility: one block per (instance, 128x128 supertile) work item.
-//      The block walks the instance's triangles in chunks of BLOCK, keeps
-//      those whose pixel bbox meets the tile, prefix-sums their bbox-in-tile
-//      pixel counts in shared memory and spreads the (triangle, pixel) pairs
-//      evenly over its threads (one thread per pair, so a full-tile
-//      near-plane triangle costs the same as many 1-px ones). A covered
-//      pixel does a 64-bit atomicMin of (float_bits(z) << 32) | gid; covered
-//      z is >= 0, so the bits order like the floats and the low word breaks
-//      ties to the lowest id.
-//   2. resolve: one thread per pixel decodes the key and gathers the
-//      winner's 27 plane coefficients.
-// What bounds it on the H100: the global 64-bit atomics (one per covered
-// triangle-pixel pair, ~overdraw x 2.2M px per 1080p frame) and the bytes of
-// triangle data each work item reads (64 B per triangle of its instance,
-// 2048 triangles per instance, mostly from L2). The design keeps the per
-// pair work to three edge and one depth evaluation and moves the 27
-// attribute coefficients only once per pixel, in the resolve pass; the
-// TPU kernel's one-hot MXU compaction, bf16 splits and per-cell round
-// counts are TPU layout and have no counterpart here.
+// B2, `vrt_raster_depth`, replaces `_raster_kernel(depth_only=True)`,
+// launched by `rasterize_pallas_depth` (the map-mode light view): per pixel
+// only the minimum covered z, F32_FAR where nothing covers, bit-identical
+// to B1's z channel on the same inputs.
+//
+// Design (launches on the caller's stream):
+//   1. visibility, shared by B1 and B2 (one template): one block per
+//      (instance, 128x128 supertile) work item. The block walks the
+//      instance's triangles in chunks of BLOCK, keeps those whose pixel bbox
+//      meets the tile, prefix-sums their bbox-in-tile pixel counts in shared
+//      memory and spreads the (triangle, pixel) pairs evenly over its
+//      threads (one thread per pair, so a full-tile near-plane triangle
+//      costs the same as many 1-px ones). A covered pixel does, for B1, a
+//      64-bit atomicMin of (float_bits(z) << 32) | gid, and for B2 a 32-bit
+//      atomicMin of float_bits(z) straight into the float z output, which
+//      a fill pass set to F32_FAR first. Covered z is >= +0 and below
+//      F32_FAR, so the unsigned bits order like the floats (and the low
+//      word of B1's key breaks ties to the lowest id).
+//   2. B1 only, resolve: one thread per pixel decodes the key and gathers
+//      the winner's 27 plane coefficients.
+// What bounds it on the H100: the global atomics (one per covered
+// triangle-pixel pair, ~overdraw x 2.2M px per 1080p frame, 4.2M px per
+// 2048^2 light map) and the bytes of triangle data each work item reads
+// (64 B per triangle of its instance, 2048 triangles per instance, mostly
+// from L2). The design keeps the per pair work to three edge and one depth
+// evaluation and moves the 27 attribute coefficients only once per pixel,
+// in B1's resolve pass; B2 reads none of them. The TPU kernel's one-hot
+// MXU compaction, bf16 splits and per-cell round counts are TPU layout and
+// have no counterpart here.
 //
 // Exactness: every plane is evaluated as (a*px + b*py) + c with separate
 // IEEE roundings (__fmul_rn/__fadd_rn; the library is also built with
@@ -73,10 +82,12 @@ __device__ __forceinline__ int block_inclusive_scan(int v, int* warp_sums) {
   return v + (warp > 0 ? warp_sums[warp - 1] : 0);
 }
 
+// kDepthOnly: `out` is the float z map (B2), else the uint64 key map (B1).
+template <bool kDepthOnly>
 __global__ void __launch_bounds__(kBlock)
 visibility_kernel(const float* __restrict__ vis, const int* __restrict__ items,
                   int tris_per_inst, int tiles_x, int tile, int width,
-                  int height, unsigned long long* __restrict__ keys) {
+                  int height, void* __restrict__ out) {
   const int inst = items[2 * blockIdx.x];
   if (inst < 0) return;  // unused work-list slot
   const int st = items[2 * blockIdx.x + 1];
@@ -138,15 +149,26 @@ visibility_kernel(const float* __restrict__ vis, const int* __restrict__ items,
       if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && zq >= 0.0f &&
           zq <= 1.01f) {
         const unsigned int zbits = __float_as_uint(__fadd_rn(zq, 0.0f));
-        const unsigned int gid =
-            (unsigned int)inst * (unsigned int)tris_per_inst + (c0 + lo);
-        const unsigned long long key =
-            ((unsigned long long)zbits << 32) | (unsigned long long)gid;
-        atomicMin(&keys[(size_t)y * width + x], key);
+        const size_t p = (size_t)y * width + x;
+        if constexpr (kDepthOnly) {
+          atomicMin(static_cast<unsigned int*>(out) + p, zbits);
+        } else {
+          const unsigned int gid =
+              (unsigned int)inst * (unsigned int)tris_per_inst + (c0 + lo);
+          const unsigned long long key =
+              ((unsigned long long)zbits << 32) | (unsigned long long)gid;
+          atomicMin(static_cast<unsigned long long*>(out) + p, key);
+        }
       }
     }
     __syncthreads();
   }
+}
+
+__global__ void __launch_bounds__(kBlock)
+fill_far_kernel(float* __restrict__ z, int num_pixels) {
+  const int p = blockIdx.x * kBlock + threadIdx.x;
+  if (p < num_pixels) z[p] = kFar;
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -196,10 +218,27 @@ extern "C" int vrt_raster(const float* vis, const float* coef,
   cudaMemsetAsync(keys, 0xff, (size_t)num_pixels * sizeof(unsigned long long),
                   s);
   if (n_items > 0) {
-    visibility_kernel<<<n_items, kBlock, 0, s>>>(
+    visibility_kernel<false><<<n_items, kBlock, 0, s>>>(
         vis, items, tris_per_inst, tiles_x, tile, width, height, keys);
   }
   resolve_kernel<<<(num_pixels + kBlock - 1) / kBlock, kBlock, 0, s>>>(
       keys, coef, width, num_pixels, z, id, attrs);
+  return (int)cudaGetLastError();
+}
+
+// Depth-only rasterize (B2): z (height, width) float32 is the output, set
+// to F32_FAR and min-merged in place. Other arguments as for vrt_raster.
+extern "C" int vrt_raster_depth(const float* vis, const int* items,
+                                int n_items, int tris_per_inst, int tiles_x,
+                                int tile, int width, int height, float* z,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int num_pixels = width * height;
+  fill_far_kernel<<<(num_pixels + kBlock - 1) / kBlock, kBlock, 0, s>>>(
+      z, num_pixels);
+  if (n_items > 0) {
+    visibility_kernel<true><<<n_items, kBlock, 0, s>>>(
+        vis, items, tris_per_inst, tiles_x, tile, width, height, z);
+  }
   return (int)cudaGetLastError();
 }

@@ -91,5 +91,7 @@ def load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.vrt_raster.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p]
         lib.vrt_raster.restype = i
+        lib.vrt_raster_depth.argtypes = [p, p, i, i, i, i, i, i, p, p]
+        lib.vrt_raster_depth.restype = i
         _loaded = lib
     return _loaded

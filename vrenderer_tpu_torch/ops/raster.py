@@ -58,11 +58,12 @@ def setup_components(world: torch.Tensor, attrs: torch.Tensor,
                      w_eps: float = 1e-4) -> TriComponents:
     """Project vertices and build per-triangle setup for I*T triangles.
     ``world`` is (I, V, 3) or the terrain lattice (I, S, S, 3); ``attrs``
-    matches it with A channels; ``tri_indices`` (T, 3) index the V axis."""
+    matches it with A channels (A = 0 for a depth-only raster);
+    ``tri_indices`` (T, 3) index the V axis."""
     I = world.shape[0]
     A = attrs.shape[-1]
     verts = world.reshape(I, -1, 3)
-    vattr = attrs.reshape(I, -1, A)
+    vattr = attrs.reshape(I, verts.shape[1], A)
     M = world_to_clip
     vx, vy, vz = verts[..., 0], verts[..., 1], verts[..., 2]
     cc = [vx * M[0, c] + vy * M[1, c] + vz * M[2, c] + M[3, c]

@@ -16,6 +16,15 @@ perspective-correct attributes.
   (triangle, pixel) pairs of each work item are expanded in chunks and
   merged with ``scatter_reduce("amin")`` on int64 keys
   ``(z_bits << 32) | gid``. It is the CPU path and the card's reference.
+* ``rasterize_depth`` is the depth-only wrapper for the map-mode light
+  view: it reads only the 16 visibility floats per triangle
+  (``pack_vis``) and returns the minimum covered z, bit-identical to
+  ``rasterize``'s z. A CUDA tensor launches kernel B2 (``vrt_raster_depth``
+  in ``csrc/raster.cu``), which replaces ``raster_pallas._raster_kernel``
+  (depth-only variant, via ``rasterize_pallas_depth``);
+  ``rasterize_depth.launches`` counts those launches. A CPU tensor runs
+  ``rasterize_depth_plain``, the same pair expansion merged with
+  ``scatter_reduce("amin")`` on z.
 
 The work list keeps the JAX package's count (one leading dummy per
 supertile plus every overlapping (usable instance, supertile) pair, so
@@ -62,14 +71,10 @@ class WorkList(NamedTuple):
     num_items: torch.Tensor
 
 
-def pack_setup(setup: TriSetup, num_instances: int) -> PackedTris:
-    """TriSetup over I*T triangles (planes [z, inv_w, 8 attr/w]) ->
-    PackedTris."""
+def pack_vis(setup: TriSetup, num_instances: int) -> torch.Tensor:
+    """The visibility rows (I, T, 16) of a TriSetup over I*T triangles
+    (planes [z, ...]): all the depth-only raster reads."""
     N = setup.edge.shape[0]
-    I, T = num_instances, N // num_instances
-    if setup.planes.shape[1] != 2 + NUM_ATTRS:
-        raise ValueError(f"expected z, inv_w and {NUM_ATTRS} attribute "
-                         f"planes, got {setup.planes.shape[1]}")
     ok = setup.valid[:, None]
     zero = torch.zeros((), dtype=torch.float32, device=ok.device)
     planes = torch.cat([setup.edge.reshape(N, 9), setup.planes[:, 0, :]], 1)
@@ -77,9 +82,23 @@ def pack_setup(setup: TriSetup, num_instances: int) -> PackedTris:
                          dtype=torch.float32, device=ok.device)
     vis = torch.cat([torch.where(ok, planes, zero),
                      torch.where(ok, setup.bbox, empty)], 1)
-    coef = torch.where(ok, setup.planes[:, 1:, :].reshape(N, NUM_COEF), zero)
-    return PackedTris(vis=vis.reshape(I, T, VIS_STRIDE).contiguous(),
-                      coef=coef.reshape(I, T, NUM_COEF).contiguous())
+    return vis.reshape(num_instances, N // num_instances,
+                       VIS_STRIDE).contiguous()
+
+
+def pack_setup(setup: TriSetup, num_instances: int) -> PackedTris:
+    """TriSetup over I*T triangles (planes [z, inv_w, 8 attr/w]) ->
+    PackedTris."""
+    N = setup.edge.shape[0]
+    if setup.planes.shape[1] != 2 + NUM_ATTRS:
+        raise ValueError(f"expected z, inv_w and {NUM_ATTRS} attribute "
+                         f"planes, got {setup.planes.shape[1]}")
+    zero = torch.zeros((), dtype=torch.float32, device=setup.valid.device)
+    coef = torch.where(setup.valid[:, None],
+                       setup.planes[:, 1:, :].reshape(N, NUM_COEF), zero)
+    return PackedTris(vis=pack_vis(setup, num_instances),
+                      coef=coef.reshape(num_instances, N // num_instances,
+                                        NUM_COEF).contiguous())
 
 
 def instance_bbox_components(comp, width: int, height: int,
@@ -173,12 +192,14 @@ def full_work_list(num_instances: int, width: int, height: int,
                     num_items=torch.tensor(items.shape[0], device=device))
 
 
-def _check(packed: PackedTris, work: WorkList, device: torch.device):
-    vis, coef = packed
+def _check(vis: torch.Tensor, coef: torch.Tensor | None, work: WorkList):
+    """Device, shape, dtype and contiguity of the kernels' inputs."""
+    device = vis.device
     I, T = vis.shape[0], vis.shape[1]
-    expect = ((vis, (I, T, VIS_STRIDE), torch.float32),
-              (coef, (I, T, NUM_COEF), torch.float32),
-              (work.items, (work.items.shape[0], 2), torch.int32))
+    expect = [(vis, (I, T, VIS_STRIDE), torch.float32),
+              (work.items, (work.items.shape[0], 2), torch.int32)]
+    if coef is not None:
+        expect.append((coef, (I, T, NUM_COEF), torch.float32))
     for x, shape, dtype in expect:
         if x.device != device:
             raise ValueError(f"raster inputs on {x.device} and {device}")
@@ -187,6 +208,19 @@ def _check(packed: PackedTris, work: WorkList, device: torch.device):
                              f"expected {shape} {dtype}")
         if not x.is_contiguous():
             raise ValueError("raster inputs must be contiguous")
+
+
+def _launch(entry: str, device: torch.device, *args) -> None:
+    """Call the library's ``entry`` with ``args`` and the current stream of
+    ``device``; raise if the launch failed."""
+    from vrenderer_tpu_torch.ops import _build
+
+    lib = _build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
 
 def rasterize(packed: PackedTris, work: WorkList, width: int, height: int,
@@ -198,16 +232,13 @@ def rasterize(packed: PackedTris, work: WorkList, width: int, height: int,
     ``rasterize_plain``."""
     if reverse_z or wire_px > 0.0:
         raise NotImplementedError("reverse_z and wireframe are not ported "
-                                  "yet (ROADMAP.md, A12)")
+                                  "yet (ROADMAP.md, A14)")
     device = packed.vis.device
-    _check(packed, work, device)
+    _check(packed.vis, packed.coef, work)
     if device.type == "cpu":
         return rasterize_plain(packed, work, width, height, tile)
     if device.type != "cuda":
         raise ValueError(f"no rasterizer for device {device}")
-    from vrenderer_tpu_torch.ops import _build
-
-    lib = _build.load()
     vis, coef = packed
     z = torch.empty((height, width), dtype=torch.float32, device=device)
     ids = torch.empty((height, width), dtype=torch.int32, device=device)
@@ -215,16 +246,10 @@ def rasterize(packed: PackedTris, work: WorkList, width: int, height: int,
                         device=device)
     keys = torch.empty((height * width,), dtype=torch.int64, device=device)
     tiles_x, _ = _tiles(width, height, tile)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.vrt_raster(
-            vis.data_ptr(), coef.data_ptr(), work.items.data_ptr(),
-            work.items.shape[0], vis.shape[1], tiles_x, tile, width, height,
-            keys.data_ptr(), z.data_ptr(), ids.data_ptr(), attrs.data_ptr(),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"raster kernel launch failed: CUDA error {err}")
+    _launch("vrt_raster", device, vis.data_ptr(), coef.data_ptr(),
+            work.items.data_ptr(), work.items.shape[0], vis.shape[1], tiles_x,
+            tile, width, height, keys.data_ptr(), z.data_ptr(),
+            ids.data_ptr(), attrs.data_ptr())
     rasterize.launches += 1
     return z, ids, attrs
 
@@ -232,12 +257,35 @@ def rasterize(packed: PackedTris, work: WorkList, width: int, height: int,
 rasterize.launches = 0
 
 
-def rasterize_plain(packed: PackedTris, work: WorkList, width: int,
-                    height: int, tile: int = TILE, chunk: int = 1 << 21):
-    """Plain PyTorch version of the kernel: same inputs, outputs and key
-    semantics. ``chunk`` bounds the (triangle, pixel) pairs evaluated at
-    once."""
-    vis, coef = packed
+def rasterize_depth(vis: torch.Tensor, work: WorkList, width: int,
+                    height: int, tile: int = TILE) -> torch.Tensor:
+    """Depth-only raster of the visibility rows ``vis`` (I, T, 16): z
+    (H, W) float32 of the nearest covered triangle, F32_FAR where none
+    covers. CUDA tensors launch kernel B2, CPU tensors run
+    ``rasterize_depth_plain``."""
+    device = vis.device
+    _check(vis, None, work)
+    if device.type == "cpu":
+        return rasterize_depth_plain(vis, work, width, height, tile)
+    if device.type != "cuda":
+        raise ValueError(f"no rasterizer for device {device}")
+    z = torch.empty((height, width), dtype=torch.float32, device=device)
+    tiles_x, _ = _tiles(width, height, tile)
+    _launch("vrt_raster_depth", device, vis.data_ptr(), work.items.data_ptr(),
+            work.items.shape[0], vis.shape[1], tiles_x, tile, width, height,
+            z.data_ptr())
+    rasterize_depth.launches += 1
+    return z
+
+
+rasterize_depth.launches = 0
+
+
+def _covered_pairs(vis: torch.Tensor, work: WorkList, width: int,
+                   height: int, tile: int, chunk: int):
+    """The kernels' coverage, expanded in plain PyTorch: yields, ``chunk``
+    (triangle, pixel) pairs at a time, the covered pairs' (pixel index, z
+    with -0.0 made +0.0, global id)."""
     dev = vis.device
     T = vis.shape[1]
     tiles_x, _ = _tiles(width, height, tile)
@@ -264,8 +312,6 @@ def rasterize_plain(packed: PackedTris, work: WorkList, width: int,
     gid = inst[w_i] * T + t_i
     pc = vis[inst[w_i], t_i, :12]                              # (n, 12)
 
-    keys = torch.full((height * width,), _KEY_EMPTY, dtype=torch.int64,
-                      device=dev)
     total = int(cnt.sum())
     for lo in range(0, total, chunk):
         p0, p1 = torch.searchsorted(
@@ -291,10 +337,33 @@ def rasterize_plain(packed: PackedTris, work: WorkList, width: int,
         cover = ((plane(0) >= 0.0) & (plane(3) >= 0.0) & (plane(6) >= 0.0)
                  & (zq >= 0.0) & (zq <= 1.01))
         # +0.0 canonicalises -0.0, whose bits would sort above every z
-        zbits = (zq[cover] + 0.0).view(torch.int32).to(torch.int64)
-        key = (zbits << 32) | gid[r][cover]
-        keys.scatter_reduce_(0, (y * width + x)[cover], key, "amin")
-    return _resolve_plain(keys, coef, width, height)
+        yield (y * width + x)[cover], zq[cover] + 0.0, gid[r][cover]
+
+
+def rasterize_plain(packed: PackedTris, work: WorkList, width: int,
+                    height: int, tile: int = TILE, chunk: int = 1 << 21):
+    """Plain PyTorch version of kernel B1: same inputs, outputs and key
+    semantics. ``chunk`` bounds the (triangle, pixel) pairs evaluated at
+    once."""
+    keys = torch.full((height * width,), _KEY_EMPTY, dtype=torch.int64,
+                      device=packed.vis.device)
+    for pix, zq, gid in _covered_pairs(packed.vis, work, width, height, tile,
+                                       chunk):
+        zbits = zq.view(torch.int32).to(torch.int64)
+        keys.scatter_reduce_(0, pix, (zbits << 32) | gid, "amin")
+    return _resolve_plain(keys, packed.coef, width, height)
+
+
+def rasterize_depth_plain(vis: torch.Tensor, work: WorkList, width: int,
+                          height: int, tile: int = TILE,
+                          chunk: int = 1 << 21) -> torch.Tensor:
+    """Plain PyTorch version of kernel B2: the pairs of ``rasterize_plain``
+    merged with a float ``amin`` (order-free, so exact on every device)."""
+    z = torch.full((height * width,), F32_FAR, dtype=torch.float32,
+                   device=vis.device)
+    for pix, zq, _ in _covered_pairs(vis, work, width, height, tile, chunk):
+        z.scatter_reduce_(0, pix, zq, "amin")
+    return z.reshape(height, width)
 
 
 def _resolve_plain(keys: torch.Tensor, coef: torch.Tensor, width: int,

@@ -1,18 +1,27 @@
-"""Horizon-map terrain shadows with scene-mesh occluders and receivers,
-ported from ``vrenderer_tpu.ops.shadow`` (horizon mode only; the map-mode
-light-view raster is queue A11 in ROADMAP.md).
+"""Terrain shadows, ported from ``vrenderer_tpu.ops.shadow``: both modes.
 
-``horizon_shadow_field`` marches the height field toward the sun in
-texture space with whole-texture fractional shifts, tracking the maximum
-occluder slope; ``mesh_top_field`` renders scene meshes top-down into an
-occluder height field through the CUDA rasterizer (its plain version on
-the CPU).
+Horizon mode: ``horizon_shadow_field`` marches the height field toward the
+sun in texture space with whole-texture fractional shifts, tracking the
+maximum occluder slope; ``mesh_top_field`` renders scene meshes top-down
+into an occluder height field through the CUDA rasterizer (its plain
+version on the CPU).
+
+Map mode (the reference's shadow map, Renderer.cpp:333-428): the renderer
+rasters a depth-only light view through ``sun_shear_matrices`` (kernel B2,
+``raster_cuda.rasterize_depth``), then samples it with 4-tap comparison
+filtering: ``factors_from_sun_shear_map`` for the terrain lattice,
+``shadow_factors_from_map`` for scene-mesh vertices. The JAX package
+samples through float32 matrix products because gathers are slow on a
+TPU; here both samplers gather, with the same texel weights and the same
+rows-then-columns order, so their values agree with the products up to
+the last bit (tests/test_torch_shadow_map.py states the bound).
 """
 
 from __future__ import annotations
 
 import torch
 
+from vrenderer_tpu_torch.ops import texture
 from vrenderer_tpu_torch.utils import math3d
 
 
@@ -134,3 +143,164 @@ def mesh_top_field(world: torch.Tensor, valid: torch.Tensor,
     z, prim, _ = raster_cuda.rasterize(packed, work, resolution, resolution)
     height = eye[1] - (1.0 + z * (2e4 - 1.0))
     return torch.where(prim >= 0, height, torch.full_like(height, -1e9))
+
+
+# sheared light view constants: depth z01 maps linearly to world height
+# as h = EYE_H - (1 + z * (FAR - 1))
+_SHEAR_EYE_H = 1.0e4
+_SHEAR_FAR = 2.0e4
+
+
+def sun_shear_matrices(light_direction: torch.Tensor, world_size: float,
+                       max_height: torch.Tensor, resolution: int,
+                       k_max: float = 4.0):
+    """World->clip of the sun-ray-aligned (sheared) light view: each point
+    maps to the ground point (x + y*kx, z + y*kz) of its sun ray, depth is
+    linear in height, so the map lattice lands on the world's xz lattice.
+    The shear vector's length is clamped to ``k_max`` (low suns), keeping
+    its direction. The map spans the world plus ``max_height * |k|`` per
+    axis, pixel centres on the span's texel lattice. Returns (wtc (4, 4),
+    kx, kz, span_x, span_z), spans in world metres."""
+    dev = light_direction.device
+    d = light_direction.to(torch.float32)
+    d = d / torch.sqrt(torch.sum(d * d) + 1e-20)
+    drop = torch.clamp(-d[1], min=1e-3)      # metres of fall per unit travel
+    kx = d[0] / drop
+    kz = d[2] / drop
+    norm = torch.sqrt(kx * kx + kz * kz)
+    scale = torch.clamp(k_max / torch.clamp(norm, min=1e-6), max=1.0)
+    kx = kx * scale
+    kz = kz * scale
+    # row-vector shear: ground = (x + y*kx, z + y*kz), height untouched
+    shear = torch.eye(4, dtype=torch.float32, device=dev)
+    shear[1, 0] = kx
+    shear[1, 2] = kz
+    span_x = world_size + 2.0 * max_height * torch.abs(kx)
+    span_z = world_size + 2.0 * max_height * torch.abs(kz)
+    # overhead ortho (mesh_top_field's construction); columns follow +x
+    # (sheared), rows +z
+    eye = torch.tensor([0.0, _SHEAR_EYE_H, 0.0], dtype=torch.float32,
+                       device=dev)
+    up = torch.tensor([0.0, 0.0, -1.0], dtype=torch.float32, device=dev)
+    w2v = math3d.look_at(eye, torch.zeros(3, dtype=torch.float32, device=dev),
+                         up)
+    ext_x = span_x * 0.5 + span_x / (resolution - 1) * 0.5
+    ext_z = span_z * 0.5 + span_z / (resolution - 1) * 0.5
+    proj = math3d.ortho_proj_d3d_style(-ext_x, ext_x, -ext_z, ext_z, 1.0,
+                                       _SHEAR_FAR)
+    return shear @ math3d.view_proj(w2v, proj), kx, kz, span_x, span_z
+
+
+def shear_map_heights(depth_map: torch.Tensor, covered: torch.Tensor
+                      ) -> torch.Tensor:
+    """Sheared-view depth map -> occluder heights S0 (world metres, -1e9
+    where nothing covers): the highest occluder on the sun rays grounding
+    at each texel."""
+    h = _SHEAR_EYE_H - (1.0 + depth_map * (_SHEAR_FAR - 1.0))
+    return torch.where(covered, h, torch.full_like(h, -1e9))
+
+
+def _lattice_taps(u: torch.Tensor, size: int):
+    """The two clamped texels and bilinear weights of ``interp_matrix``
+    (lattice addressing): w0 = 1 - (x - i0), w1 = 1 - ((i0 + 1) - x),
+    rounded as the JAX package's |x - t| weights are."""
+    x = texture.texel_coords(u, size)
+    i0 = torch.floor(x)
+    w0 = 1.0 - (x - i0)
+    w1 = 1.0 - ((i0 + 1.0) - x)
+    i0 = i0.long()
+    return i0, torch.clamp(i0 + 1, max=size - 1), w0, w1
+
+
+def factors_from_sun_shear_map(s0: torch.Tensor, heightmap: torch.Tensor,
+                               max_height: torch.Tensor, world_size: float,
+                               kx, kz, span_x, span_z, sun_up,
+                               num_slabs: int = 17, bias: float = 2.0,
+                               pcf_px: float = 1.0) -> torch.Tensor:
+    """Terrain shadow factors (H, W) from the sheared map's occluder
+    heights ``s0`` (R, R). A receiver at (x, h, z) grounds its sun ray at
+    (x + h*kx, z + h*kz) and is lit where h + bias clears S0 there. For
+    each of ``num_slabs`` heights the samples over the terrain lattice form
+    a grid; each slab is sampled at 4 half-texel PCF taps (rows, then
+    columns, by gather), compared, averaged, and every texel blends the two
+    slabs bracketing its own height."""
+    R = s0.shape[0]
+    Ht, Wt = heightmap.shape
+    dev = s0.device
+    h_world = heightmap * max_height
+    gx = math3d.linspace(-world_size / 2, world_size / 2, Wt, device=dev)
+    gz = math3d.linspace(-world_size / 2, world_size / 2, Ht, device=dev)
+    dh = max_height / (num_slabs - 1)
+    tap = 0.5 * pcf_px / (R - 1)
+    hk = torch.stack([dh * k for k in range(num_slabs)])[:, None]
+    u = (gx + hk * kx) / span_x + 0.5                           # (K, Wt)
+    v = (gz + hk * kz) / span_z + 0.5                           # (K, Ht)
+    offs = torch.tensor([-tap, tap], dtype=torch.float32, device=dev)
+    uo = u[:, None, :] + offs[None, :, None]                     # (K, 2, Wt)
+    vo = v[:, None, :] + offs[None, :, None]                     # (K, 2, Ht)
+
+    y0, y1, wy0, wy1 = _lattice_taps(vo, R)
+    rows = (s0[y0] * wy0[..., None] + s0[y1] * wy1[..., None])   # (K,2,Ht,R)
+    x0, x1, wx0, wx1 = _lattice_taps(uo, R)
+
+    def cols(i):                          # (K, 2[dv], 2[du], Ht, Wt)
+        idx = i[:, None, :, None, :].expand(-1, 2, -1, Ht, -1)
+        return torch.gather(rows[:, :, None].expand(-1, -1, 2, -1, -1), 4,
+                            idx)
+
+    sk = (cols(x0) * wx0[:, None, :, None, :]
+          + cols(x1) * wx1[:, None, :, None, :])
+    lit_k = (h_world + bias >= sk).to(torch.float32).sum((1, 2)) * 0.25
+
+    # per-texel hat blend between the two bracketing slabs
+    t = torch.clamp(h_world / dh, 0.0, num_slabs - 1)
+    kf = torch.arange(num_slabs, dtype=torch.float32, device=dev)[:, None,
+                                                                   None]
+    wk = torch.clamp(1.0 - torch.abs(t[None] - kf), min=0.0)
+    lit = torch.sum(wk * lit_k, dim=0)
+    return torch.where(sun_up > 0.0, lit, torch.zeros_like(lit))
+
+
+def shadow_factors_from_map(depth_map: torch.Tensor, wtc: torch.Tensor,
+                            z_range: float, points: torch.Tensor,
+                            bias_m: float = 2.0, pcf_px: float = 1.0
+                            ) -> torch.Tensor:
+    """Shadow factors (N,) of world points (N, 3) (mesh-vertex receivers)
+    by 4-tap comparison sampling of a light-view depth map: the PCF step of
+    the reference's deferred lighting (Renderer.cpp:417-428). The JAX
+    package's chunked (chunk, R) x (R, R) product per tap is a bilinear
+    gather here."""
+    R = depth_map.shape[0]
+    ndc = math3d.transform_points_h(wtc, points)[:, :3]     # ortho: w == 1
+    # pixel coords (y down) -> texel-lattice uv for the sampler
+    px = (ndc[:, 0] + 1.0) * 0.5 * R - 0.5
+    py = (1.0 - ndc[:, 1]) * 0.5 * R - 0.5
+    d = ndc[:, 2] - bias_m / z_range
+    acc = torch.zeros_like(px)
+    for tx, ty in ((-0.5, -0.5), (0.5, -0.5), (-0.5, 0.5), (0.5, 0.5)):
+        u01 = (px + tx * pcf_px) / (R - 1)
+        v01 = (py + ty * pcf_px) / (R - 1)
+        md = texture.sample_points(depth_map, u01, v01)
+        acc = acc + (md >= d).to(torch.float32)
+    return acc / 4
+
+
+def light_view_matrices(light_direction: torch.Tensor, world_size: float,
+                        max_height: torch.Tensor, resolution: int
+                        ) -> torch.Tensor:
+    """Ortho world->clip for the sun covering the whole terrain: the
+    reference's single cascade with maxShadowDistance = zRange =
+    WORLD_SIZE (Renderer.cpp:345-348)."""
+    dev = light_direction.device
+    d = -light_direction.to(torch.float32)
+    d = d / torch.sqrt(torch.sum(d * d) + 1e-20)
+    eye = d * (world_size * 1.5)
+    up = torch.where(torch.abs(d[1]) > 0.99,
+                     torch.tensor([0.0, 0.0, 1.0], device=dev),
+                     torch.tensor([0.0, 1.0, 0.0], device=dev))
+    w2v = math3d.look_at(eye, torch.zeros(3, dtype=torch.float32, device=dev),
+                         up)
+    half = world_size * 0.75
+    proj = math3d.ortho_proj_d3d_style(-half, half, -half, half, 0.1,
+                                       world_size * 3.0, device=dev)
+    return math3d.view_proj(w2v, proj)

@@ -17,7 +17,7 @@ def texel_coords(u: torch.Tensor, size: int, mode: str = "lattice"
                  ) -> torch.Tensor:
     """uv in [0, 1] -> continuous texel coordinate with clamp addressing."""
     if mode != "lattice":
-        # "d3d" addressing waits with the rest of queue A12 (ROADMAP.md)
+        # "d3d" addressing waits with the rest of queue A14 (ROADMAP.md)
         raise NotImplementedError(f"texel addressing {mode!r} is not ported")
     return torch.clamp(u, 0.0, 1.0) * (size - 1)
 

@@ -3,22 +3,32 @@
 Renderer.cpp:321-446).
 
 One frame runs, in order: view constants, scene refresh (scene blocks to
-world space), the horizon shadow field (or a cached prepass), LOD
-selection, the vertex stage, triangle setup, binning, the rasterizer
-(``ops/raster_cuda.rasterize``: the CUDA kernel for tensors on the card,
-its plain version on the CPU), deferred lighting, tonemap, sky after
-tonemap, and sRGB encode. Every tensor lives on ``Renderer.device``.
+world space), the shadow phase, LOD selection, the vertex stage, triangle
+setup, binning, the rasterizer (``ops/raster_cuda.rasterize``: the CUDA
+kernel for tensors on the card, its plain version on the CPU), deferred
+lighting, tonemap, sky after tonemap, and sRGB encode. Every tensor lives
+on ``Renderer.device``.
 
-Ported: horizon shadows with scene occluders and receivers, the boot
-scene, ``render`` and the cached horizon prepass. Map-mode shadows, eye
-adaptation, lock-view, the sharded band path and pipeline reload raise
-NotImplementedError; ROADMAP.md queues them.
+The shadow phase has two modes (``FrameConfig.shadow_mode``):
+
+* "horizon": the height-field march over terrain and scene-mesh tops
+  (or a cached ``horizon_shadow_prepass``).
+* "map", the reference's architecture (Renderer.cpp:333-428): light
+  selection, vertex geometry, a depth-only raster of the sheared light
+  view (``raster_cuda.rasterize_depth``, kernel B2), then comparison-
+  filtered sampling into the terrain shadow field and the mesh receivers'
+  factors (or a cached ``shadow_prepass``). When the light pass selects
+  from the main eye at full LOD, the main pass reuses its selection and
+  geometry, masked to the main frustum's nodes.
+
+Eye adaptation, lock-view, the sharded band path, two-phase rasterization
+and pipeline reload raise NotImplementedError; ROADMAP.md queues them.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -70,8 +80,8 @@ class FrameOutput(NamedTuple):
     num_work_items: torch.Tensor  # () raster work-list fill (JAX count)
     overflow: torch.Tensor       # () bool: output may miss geometry
     num_selected: torch.Tensor   # () raw selection count
-    # bit 1: work list > max_work; bit 2: selection > max_active
-    # (bit 4, the shadow pass, belongs to map mode)
+    # bit 1: work list > max_work; bit 2: selection > max_active;
+    # bit 4: the map-mode shadow pass's work list or selection
     overflow_mask: torch.Tensor
 
 
@@ -88,8 +98,24 @@ def overflow_message(out: FrameOutput, renderer: "Renderer") -> str:
         parts.append(f"render budget overflowed (selected instances="
                      f"{int(out.num_selected)} > max_active="
                      f"{renderer.max_active})")
+    if mask & 4:
+        parts.append("shadow-pass work list or render budget overflowed "
+                     "(light-view selection spans the whole world; raise "
+                     "max_active/max_work)")
     msg = "; ".join(parts) if parts else "overflow flag set (unknown cause)"
     return msg + " — output may be missing geometry"
+
+
+class _ShadowInputs(NamedTuple):
+    """What the shadow phase hands the main pass."""
+
+    field: torch.Tensor                  # (H, W) terrain shadow factors
+    mesh_fn: Optional[Callable]          # scene verts (B, V, 3) -> (B, V)
+    scene_wa: Optional[tuple]            # scene blocks (world, attrs)
+    # map mode's shared light-pass geometry (None: the main pass selects)
+    instances: Optional[quadtree.SelectedInstances]
+    vout: Optional[vertex.VertexOutput]
+    overflow: torch.Tensor               # () int32, shadow-pass overflow
 
 
 class Renderer:
@@ -103,9 +129,8 @@ class Renderer:
                  albedo: torch.Tensor, light: LightParams = LightParams(),
                  max_work: int = 2048, scene: Any = None,
                  max_active: Optional[int] = None, device=None):
-        if config.shadow_mode != "horizon":
-            raise NotImplementedError(
-                f"shadow_mode={config.shadow_mode!r}: {_NOT_PORTED}")
+        if config.shadow_mode not in ("horizon", "map"):
+            raise ValueError(f"unknown shadow_mode {config.shadow_mode!r}")
         rs = config.raster
         if rs.two_phase or rs.reverse_z or rs.wireframe:
             raise NotImplementedError(
@@ -139,6 +164,7 @@ class Renderer:
         _, self.tri_indices = gridmod.make_grid(config.terrain.grid_size,
                                                 device=self.device)
         self._horizon_prepass_cache = None
+        self._shadow_prepass_cache = None
         self._prepare_scene(scene)
 
     def _prepare_scene(self, scene):
@@ -225,6 +251,9 @@ class Renderer:
         """(shadow_field, shadow_line) for ``render(..., shadow_prepass=)``.
         Depends on the sun, max height, scene transforms and heightmap,
         never on the camera."""
+        if self.config.shadow_mode != "horizon":
+            raise ValueError("the horizon prepass needs shadow_mode="
+                             "'horizon'")
         if self._scene_obj is None:
             raise ValueError("the horizon prepass is for scenes with meshes")
         if params is None:
@@ -271,56 +300,62 @@ class Renderer:
             lod=instances.lod[:ia], valid=instances.valid[:ia],
             count=instances.count)
 
-    def _raster_inputs(self, vc: Dict[str, torch.Tensor], params: FrameParams,
-                       shadow_field: torch.Tensor, mesh_shadow_fn=None,
-                       scene_wa=None):
-        """Select -> vertex -> setup -> bin: (packed triangles, work list,
-        instances). Terrain instances take slots 0..max_active-1 and scene
-        blocks follow."""
+    def _bin(self, parts, wtc, width: int, height: int):
+        """Setup and binning of ``parts`` (world, attrs, valid, tri_idx),
+        instances in order: (TriSetup, instance count, work list)."""
         cfg = self.config
-        ts = cfg.terrain
-        dev = self.device
-        wtc = vc["world_to_clip"]
-        lr = ts.lod_ranges(dev)
-        instances = self._clip_active(quadtree.select_all_surfaces(
-            ts, vc["camera_pos"], math3d.frustum_planes(wtc), lr))
-        vout = vertex.vertex_stage(
-            ts, instances, vc["camera_pos"], self.heightmap, self.albedo,
-            shadow_field, params.max_height, lr, nrm_field=self._nrm_field)
-        parts = [(vout.world, vout.attrs, instances.valid, self.tri_indices)]
-        if scene_wa is not None:
-            s_world, s_attrs = scene_wa
-            if mesh_shadow_fn is not None:
-                s_attrs = s_attrs.clone()
-                s_attrs[..., vertex.ATTR_SHADOW] = mesh_shadow_fn(s_world)
-            parts.append((s_world, s_attrs,
-                          torch.ones((s_world.shape[0],), dtype=torch.bool,
-                                     device=dev), self._scene_tri_idx))
         setups, bboxes, usables, dists = [], [], [], []
         for world, attrs, valid, tri_idx in parts:
             comp = raster.setup_components(world, attrs, valid, tri_idx, wtc,
-                                           cfg.width, cfg.height)
+                                           width, height)
             bbox, usable, dist = raster_cuda.instance_bbox_components(
-                comp, cfg.width, cfg.height, valid)
+                comp, width, height, valid)
             setups.append(raster.stack_components(comp))
             bboxes.append(bbox)
             usables.append(usable)
             dists.append(dist)
         setup = raster.TriSetup(*(torch.cat(f) for f in zip(*setups)))
-        n_inst = sum(p[0].shape[0] for p in parts)
-        packed = raster_cuda.pack_setup(setup, n_inst)
         work = raster_cuda.build_work_list(
-            torch.cat(bboxes), torch.cat(usables), cfg.width, cfg.height,
+            torch.cat(bboxes), torch.cat(usables), width, height,
             tile=cfg.raster.tile_w, max_work=self.max_work,
             order_key=torch.cat(dists))
-        return packed, work, instances
+        return setup, sum(p[0].shape[0] for p in parts), work
 
-    def _terrain_pass(self, vc, params, shadow_field, mesh_shadow_fn=None,
-                      scene_wa=None):
+    def _raster_inputs(self, vc: Dict[str, torch.Tensor], params: FrameParams,
+                       sh: _ShadowInputs):
+        """Select -> vertex -> setup -> bin: (packed triangles, work list,
+        instances). Terrain instances take slots 0..max_active-1 and scene
+        blocks follow. Map mode's shared geometry skips select and
+        vertex."""
+        cfg = self.config
+        ts = cfg.terrain
+        dev = self.device
+        wtc = vc["world_to_clip"]
+        if sh.vout is not None:
+            instances, vout = sh.instances, sh.vout
+        else:
+            lr = ts.lod_ranges(dev)
+            instances = self._clip_active(quadtree.select_all_surfaces(
+                ts, vc["camera_pos"], math3d.frustum_planes(wtc), lr))
+            vout = vertex.vertex_stage(
+                ts, instances, vc["camera_pos"], self.heightmap, self.albedo,
+                sh.field, params.max_height, lr, nrm_field=self._nrm_field)
+        parts = [(vout.world, vout.attrs, instances.valid, self.tri_indices)]
+        if sh.scene_wa is not None:
+            s_world, s_attrs = sh.scene_wa
+            if sh.mesh_fn is not None:
+                s_attrs = s_attrs.clone()
+                s_attrs[..., vertex.ATTR_SHADOW] = sh.mesh_fn(s_world)
+            parts.append((s_world, s_attrs,
+                          torch.ones((s_world.shape[0],), dtype=torch.bool,
+                                     device=dev), self._scene_tri_idx))
+        setup, n_inst, work = self._bin(parts, wtc, cfg.width, cfg.height)
+        return raster_cuda.pack_setup(setup, n_inst), work, instances
+
+    def _terrain_pass(self, vc, params, sh: _ShadowInputs):
         """Raster products (z, prim_id, attrs, instances, work items)."""
         cfg = self.config
-        packed, work, instances = self._raster_inputs(
-            vc, params, shadow_field, mesh_shadow_fn, scene_wa)
+        packed, work, instances = self._raster_inputs(vc, params, sh)
         z, prim_id, attrs = raster_cuda.rasterize(
             packed, work, cfg.width, cfg.height, tile=cfg.raster.tile_w)
         return z, prim_id, attrs, instances, work.num_items
@@ -343,28 +378,32 @@ class Renderer:
 
     # -- frame -------------------------------------------------------------
 
-    def _shadow_inputs(self, params: FrameParams, scene_xf=None,
-                       shadow_prepass=None):
-        """"Scene Refresh" and "Terrain Shadow": (shadow field,
-        mesh_shadow_fn, scene_wa) for ``_raster_inputs``."""
+    def _shadow_inputs(self, vc: Dict[str, torch.Tensor], params: FrameParams,
+                       scene_xf=None, shadow_prepass=None) -> _ShadowInputs:
+        """"Scene Refresh" and "Terrain Shadow": the shadow field, the mesh
+        receivers' factor function and the scene blocks, in either mode."""
         world_size = float(self.config.terrain.world_size)
-        if self._scene_obj is None:
-            return shadow.horizon_shadow_field(
-                self.heightmap, params.max_height, world_size,
-                params.light_direction), None, None
-
-        # "Scene Refresh" (Renderer.cpp:328-331)
         if scene_xf is None:
             scene_xf = self.scene_transforms
-        scene_wa = self._scene_blocks(scene_xf, params.max_height)
+        scene_wa = self._scene_wa(params, scene_xf)
+        if self.config.shadow_mode == "map":
+            return self._map_shadow_inputs(vc, params, scene_wa,
+                                           shadow_prepass)
+        no_overflow = torch.zeros((), dtype=torch.int32, device=self.device)
+        if scene_wa is None:
+            field = shadow.horizon_shadow_field(
+                self.heightmap, params.max_height, world_size,
+                params.light_direction)
+            return _ShadowInputs(field, None, None, None, None, no_overflow)
+
         # horizon march over terrain + mesh tops; meshes receive through
         # the shadow-line field
         if shadow_prepass is not None:
-            shadow_field, sline = shadow_prepass
+            field, sline = shadow_prepass
         else:
-            shadow_field, sline = self._horizon_fields(params, scene_xf)
+            field, sline = self._horizon_fields(params, scene_xf)
 
-        def mesh_shadow_fn(w):
+        def mesh_fn(w):
             def factors(pts):
                 u = texture.world_to_uv(pts[:, 0], world_size)
                 v = texture.world_to_uv(pts[:, 2], world_size)
@@ -373,7 +412,71 @@ class Renderer:
 
             return self._mesh_receiver_factors(w, factors)
 
-        return shadow_field, mesh_shadow_fn, scene_wa
+        return _ShadowInputs(field, mesh_fn, scene_wa, None, None,
+                             no_overflow)
+
+    def _map_shadow_inputs(self, vc, params, scene_wa, shadow_prepass
+                           ) -> _ShadowInputs:
+        """Map mode: the light pass (or its cached result), the terrain
+        field and the mesh receivers' PCF factors. With the light pass
+        selecting from the main eye at full LOD its selection is a superset
+        of the main frustum's (culling only removes), so the main pass
+        reuses its geometry and runs only the attribute phase, which needs
+        this pass's shadow field."""
+        cfg = self.config
+        share = False
+        if shadow_prepass is not None:
+            # a cached whole-world map: the light raster ran outside the
+            # frame, and the cache is only valid for selections that do not
+            # track the camera exactly, where sharing does not apply
+            depth_map, wtc_l, z_range, overflow, shear = shadow_prepass
+        else:
+            # a coarsened (light eye, lod bias) or snapped-eye selection is
+            # other geometry: the main view must morph from the true eye
+            share = (cfg.shadow_select == "main" and cfg.shadow_lod_bias == 0
+                     and cfg.shadow_eye_quant == 0.0)
+            out = self._light_depth_pass(params, vc["camera_pos"], scene_wa,
+                                         return_geom=share)
+            depth_map, wtc_l, z_range, overflow, shear = out[:5]
+        field = self.shadow_field_from_map(depth_map, shear, params)
+        instances = vout = None
+        if share:
+            instances = self._main_members(out[5], vc)
+            geom = out[6]
+            vout = vertex.VertexOutput(
+                world=geom.world, attrs=vertex.vertex_attrs(
+                    cfg.terrain, geom, self.albedo, field, self._nrm_field))
+        mesh_fn = None
+        if scene_wa is not None:
+            def mesh_fn(w):
+                return self._mesh_receiver_factors(
+                    w, lambda pts: shadow.shadow_factors_from_map(
+                        depth_map, wtc_l, z_range, pts))
+
+        return _ShadowInputs(field, mesh_fn, scene_wa, instances, vout,
+                             overflow)
+
+    def _main_members(self, light: quadtree.SelectedInstances, vc
+                      ) -> quadtree.SelectedInstances:
+        """The light selection restricted to the main frustum's nodes.
+
+        The whole-world extras would flood the main work list: the clipless
+        setup gives every instance behind the camera a full-screen bbox
+        (the JAX package measured 6295 work items against 2048 at the map
+        bench config). So the main selection runs too, and light slot i
+        stays valid iff its (x, z, lod) node is in it; both selections
+        compute node positions by the same formula, so float equality is
+        exact. Slots keep the light selection's order (prim ids follow
+        it)."""
+        ts = self.config.terrain
+        inst_m = self._clip_active(quadtree.select_all_surfaces(
+            ts, vc["camera_pos"], math3d.frustum_planes(vc["world_to_clip"]),
+            ts.lod_ranges(self.device)))
+        same = ((light.position[:, None, 0] == inst_m.position[None, :, 0])
+                & (light.position[:, None, 2] == inst_m.position[None, :, 2])
+                & (light.lod[:, None] == inst_m.lod[None, :])
+                & inst_m.valid[None, :])
+        return light._replace(valid=light.valid & same.any(dim=1))
 
     def _view(self, camera: Camera):
         cfg = self.config
@@ -384,32 +487,33 @@ class Renderer:
                       params: Optional[FrameParams] = None,
                       shadow_prepass=None):
         """(packed triangles, work list) that ``render`` hands the
-        rasterizer for this camera: for driving the kernel on its own."""
+        rasterizer for this camera: for driving the kernel on its own. In
+        map mode without a prepass this runs the light pass too."""
         if params is None:
             params = FrameParams.default(self.light, self.device)
+        vc = self._view(camera)
         with torch.no_grad():
             packed, work, _ = self._raster_inputs(
-                self._view(camera), params,
-                *self._shadow_inputs(params, None, shadow_prepass))
+                vc, params, self._shadow_inputs(vc, params, None,
+                                                shadow_prepass))
         return packed, work
 
     def _frame_impl(self, camera: Camera, params: FrameParams,
                     lock_instances=None, adapt=None, band=None,
                     scene_xf=None, shadow_prepass=None) -> FrameOutput:
-        """The one frame path (Renderer.cpp:321-446), horizon shadows. The
-        JAX package's lock-view instances, eye adaptation and screen band
-        are not ported yet."""
+        """The one frame path (Renderer.cpp:321-446), either shadow mode.
+        The JAX package's lock-view instances, eye adaptation and screen
+        band are not ported yet."""
         if lock_instances is not None or adapt is not None or band is not None:
             raise NotImplementedError(
                 f"lock-view, eye adaptation and screen bands: {_NOT_PORTED}")
         cfg = self.config
         vc = self._view(camera)
-        shadow_field, mesh_shadow_fn, scene_wa = self._shadow_inputs(
-            params, scene_xf, shadow_prepass)
+        sh = self._shadow_inputs(vc, params, scene_xf, shadow_prepass)
 
         # "Terrain": geometry + visibility + interpolated G-buffer attrs
         z, prim_id, attrs, instances, n_work = self._terrain_pass(
-            vc, params, shadow_field, mesh_shadow_fn, scene_wa)
+            vc, params, sh)
         covered = (prim_id >= 0) & (params.render_terrain > 0.5)
         albedo = attrs[..., vertex.ATTR_ALBEDO]
         normal = attrs[..., vertex.ATTR_NORMAL]
@@ -444,26 +548,203 @@ class Renderer:
         count = instances.count
         work_ovf = n_work > self.max_work
         sel_ovf = count > self.max_active
+        shadow_ovf = sh.overflow > 0
         return FrameOutput(
             ldr=ldr, hdr=hdr, depth=depth, prim_id=prim_id,
             num_instances=torch.clamp(count, max=cfg.terrain.max_instances),
             num_work_items=n_work,
-            overflow=work_ovf | sel_ovf,
+            overflow=work_ovf | sel_ovf | shadow_ovf,
             num_selected=count,
             overflow_mask=(work_ovf.to(torch.int32)
-                           + 2 * sel_ovf.to(torch.int32)),
+                           + 2 * sel_ovf.to(torch.int32)
+                           + 4 * shadow_ovf.to(torch.int32)),
         )
 
     def render(self, camera: Camera, params: Optional[FrameParams] = None,
                shadow_prepass=None) -> FrameOutput:
-        """Render one frame. ``shadow_prepass``: a (shadow_field,
-        shadow_line) pair from ``cached_horizon_prepass``; frames with it
-        are identical to frames without."""
+        """Render one frame. ``shadow_prepass``: in horizon mode the
+        (shadow_field, shadow_line) pair of ``cached_horizon_prepass``, in
+        map mode the tuple of ``cached_shadow_prepass``; frames with it are
+        identical to frames without."""
         if params is None:
             params = FrameParams.default(self.light, self.device)
         with torch.no_grad():
             return self._frame_impl(camera, params,
                                     shadow_prepass=shadow_prepass)
+
+    # -- map-mode shadow pass (the reference's "Terrain Shadow") ---------
+
+    def shadow_field_from_map(self, depth_map, shear, params):
+        """Terrain shadow factors from a sheared light-view depth map."""
+        s0 = shadow.shear_map_heights(depth_map, depth_map < 2.0)
+        return shadow.factors_from_sun_shear_map(
+            s0, self.heightmap, params.max_height,
+            float(self.config.terrain.world_size), *shear,
+            -params.light_direction[1])
+
+    def _light_select(self, params: FrameParams, wtc,
+                      camera_pos: Optional[torch.Tensor] = None):
+        """Light-view LOD selection, culled by the light frustum of ``wtc``:
+        (instances, selection eye, LOD ranges). The eye is the main camera
+        (default (0, max_height, 0)), snapped to the cell centres of
+        ``shadow_eye_quant`` if set, or under ``shadow_select="light"`` the
+        CSM proxy eye, the world centre backed off one WORLD_SIZE along the
+        sun (Renderer.cpp:345-348). ``shadow_lod_bias`` halves the ranges
+        per step."""
+        cfg = self.config
+        ts = cfg.terrain
+        dev = self.device
+        if camera_pos is None:
+            camera_pos = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
+                                      device=dev) * params.max_height
+        sel_eye = camera_pos
+        if cfg.shadow_select == "main" and cfg.shadow_eye_quant > 0.0:
+            q = torch.tensor(cfg.shadow_eye_quant, dtype=torch.float32,
+                             device=dev)
+            sel_eye = (torch.floor(sel_eye / q) + 0.5) * q
+        sel_ranges = ts.lod_ranges(dev)
+        if cfg.shadow_select == "light":
+            sel_eye = (-math3d.normalize(params.light_direction)
+                       * float(ts.world_size))
+        if cfg.shadow_lod_bias:
+            sel_ranges = sel_ranges * (0.5 ** cfg.shadow_lod_bias)
+        instances = quadtree.select_all_surfaces(
+            ts, sel_eye, math3d.frustum_planes(wtc), sel_ranges)
+        return self._clip_active(instances), sel_eye, sel_ranges
+
+    def _light_pass_inputs(self, params: FrameParams, camera_pos=None,
+                           scene_wa=None):
+        """Light view, selection, vertex geometry and binning of the light
+        pass: (visibility rows, work list, world->clip, shear, instances,
+        geometry). No attribute planes are set up: B2 reads none."""
+        cfg = self.config
+        ts = cfg.terrain
+        res = cfg.shadow_resolution
+        wtc, kx, kz, span_x, span_z = shadow.sun_shear_matrices(
+            params.light_direction, float(ts.world_size), params.max_height,
+            res)
+        instances, sel_eye, sel_ranges = self._light_select(params, wtc,
+                                                            camera_pos)
+        geom = vertex.vertex_geometry(ts, instances, sel_eye, self.heightmap,
+                                      params.max_height, sel_ranges)
+
+        def no_attrs(w):
+            return w.new_zeros(w.shape[:-1] + (0,))
+
+        parts = [(geom.world, no_attrs(geom.world), instances.valid,
+                  self.tri_indices)]
+        if scene_wa is not None:
+            s_world = scene_wa[0]
+            parts.append((s_world, no_attrs(s_world),
+                          torch.ones((s_world.shape[0],), dtype=torch.bool,
+                                     device=self.device),
+                          self._scene_tri_idx))
+        setup, n_inst, work = self._bin(parts, wtc, res, res)
+        return (raster_cuda.pack_vis(setup, n_inst), work, wtc,
+                (kx, kz, span_x, span_z), instances, geom)
+
+    def _light_depth_pass(self, params: FrameParams, camera_pos=None,
+                          scene_wa=None, return_geom: bool = False):
+        """Depth-only raster of terrain and scene meshes along the sun's
+        rays (the reference's shadow phase, Renderer.cpp:354-379) in the
+        sheared projection. Returns (depth (R, R) z01, world->clip, z range
+        in metres, overflow (), (kx, kz, span_x, span_z)), and with
+        ``return_geom`` also the selection and its vertex geometry. The
+        overflow flag covers the light work list (> max_work) and the
+        light selection (> max_active): truncating either would drop
+        occluders."""
+        res = self.config.shadow_resolution
+        vis, work, wtc, shear, instances, geom = self._light_pass_inputs(
+            params, camera_pos, scene_wa)
+        z = raster_cuda.rasterize_depth(vis, work, res, res,
+                                        tile=self.config.raster.tile_w)
+        overflow = ((work.num_items > self.max_work)
+                    | (instances.count > self.max_active)).to(torch.int32)
+        out = (z, wtc, shadow._SHEAR_FAR - 1.0, overflow, shear)
+        if return_geom:
+            return out + (instances, geom)
+        return out
+
+    def light_raster_inputs(self, camera: Camera,
+                            params: Optional[FrameParams] = None):
+        """(visibility rows, work list) that ``render`` hands the depth-only
+        rasterizer for this camera: for driving kernel B2 on its own."""
+        if params is None:
+            params = FrameParams.default(self.light, self.device)
+        with torch.no_grad():
+            vis, work, *_ = self._light_pass_inputs(
+                params, camera.eye, self._scene_wa(params))
+        return vis, work
+
+    def _scene_wa(self, params: FrameParams, scene_xf=None):
+        """"Scene Refresh" (Renderer.cpp:328-331): the scene blocks in world
+        space, or None without a scene."""
+        if self._scene_obj is None:
+            return None
+        if scene_xf is None:
+            scene_xf = self.scene_transforms
+        return self._scene_blocks(scene_xf, params.max_height)
+
+    def shadow_prepass(self, params: Optional[FrameParams] = None,
+                       camera_pos: Optional[torch.Tensor] = None):
+        """The map-mode light pass on its own, for ``render(...,
+        shadow_prepass=)``: (depth_map, world_to_clip, z_range, overflow,
+        shear). Only for selections that do not follow the camera
+        continuously: ``shadow_select="light"`` (a function of the sun,
+        max height, scene and heightmap), or ``shadow_select="main"`` with
+        ``shadow_eye_quant > 0`` and ``camera_pos`` (constant within a
+        quant cell). Cached frames are bit-identical to inline ones."""
+        cfg = self.config
+        if cfg.shadow_mode != "map":
+            raise ValueError("shadow_prepass needs shadow_mode='map'")
+        quant_main = (cfg.shadow_select == "main"
+                      and cfg.shadow_eye_quant > 0.0
+                      and camera_pos is not None)
+        if not (cfg.shadow_select == "light" or quant_main):
+            raise ValueError(
+                "the cached shadow map needs shadow_select='light' or "
+                "shadow_select='main' with shadow_eye_quant > 0 and a "
+                "camera_pos (the exact main-eye selection tracks the camera "
+                "continuously)")
+        if params is None:
+            params = FrameParams.default(self.light, self.device)
+        with torch.no_grad():
+            return self._light_depth_pass(params, camera_pos,
+                                          self._scene_wa(params))
+
+    def cached_shadow_prepass(self, params: Optional[FrameParams] = None,
+                              camera_pos: Optional[torch.Tensor] = None):
+        """``shadow_prepass`` memoized on what it reads: the sun, max height,
+        scene transforms and, under the quantized main eye, the eye's cell.
+        Drive loops call it every frame."""
+        cfg = self.config
+        if params is None:
+            params = FrameParams.default(self.light, self.device)
+        cell = None
+        if (cfg.shadow_select == "main" and cfg.shadow_eye_quant > 0.0
+                and camera_pos is not None):
+            cell = tuple(torch.floor(camera_pos.to(torch.float32)
+                                     / cfg.shadow_eye_quant).long().tolist())
+        key = (params.light_direction.detach().cpu().numpy().tobytes(),
+               params.max_height.detach().cpu().numpy().tobytes(),
+               None if self.scene_transforms is None
+               else self.scene_transforms.detach().cpu().numpy().tobytes(),
+               cell)
+        cached = self._shadow_prepass_cache
+        if cached is None or cached[0] != key:
+            self._shadow_prepass_cache = (
+                key, self.shadow_prepass(params, camera_pos))
+        return self._shadow_prepass_cache[1]
+
+    def render_shadow_depth(self, params: Optional[FrameParams] = None
+                            ) -> torch.Tensor:
+        """The light-view depth map (z01) from the default eye: the
+        reference's shadow phase (Renderer.cpp:333-380)."""
+        if params is None:
+            params = FrameParams.default(self.light, self.device)
+        with torch.no_grad():
+            return self._light_depth_pass(params, None,
+                                          self._scene_wa(params))[0]
 
     # -- not ported yet -----------------------------------------------------
 

@@ -124,25 +124,35 @@ def persp_proj_d3d_style(vfov_radians: float, aspect: float, z_near: float,
     )
 
 
-def ortho_proj_d3d_style(left: float, right: float, bottom: float, top: float,
-                         z_near: float, z_far: float,
-                         device=None) -> torch.Tensor:
-    """Row-vector right-handed ortho with D3D z in [0, 1]."""
+def ortho_proj_d3d_style(left, right, bottom, top, z_near: float,
+                         z_far: float, device=None) -> torch.Tensor:
+    """Row-vector right-handed ortho with D3D z in [0, 1]. The x/y bounds
+    may be float32 scalar tensors (the sheared light view's spans); their
+    entries are then computed in float32, as the JAX package traces them."""
     rl = right - left
     tb = top - bottom
     fn = z_far - z_near
-    return torch.tensor(
-        [[2.0 / rl, 0.0, 0.0, 0.0],
-         [0.0, 2.0 / tb, 0.0, 0.0],
-         [0.0, 0.0, -1.0 / fn, 0.0],
-         [-(right + left) / rl, -(top + bottom) / tb, -z_near / fn, 1.0]],
-        dtype=torch.float32, device=device,
-    )
+    rows = [[2.0 / rl, 0.0, 0.0, 0.0],
+            [0.0, 2.0 / tb, 0.0, 0.0],
+            [0.0, 0.0, -1.0 / fn, 0.0],
+            [-(right + left) / rl, -(top + bottom) / tb, -z_near / fn, 1.0]]
+    if not isinstance(rl, torch.Tensor):
+        return torch.tensor(rows, dtype=torch.float32, device=device)
+    return torch.stack([torch.stack([
+        torch.as_tensor(v, dtype=torch.float32, device=rl.device)
+        for v in row]) for row in rows])
 
 
 def view_proj(world_to_view: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     """Compose a (4, 3) world->view affine with a (4, 4) projection."""
     return affine_to_homogeneous(world_to_view) @ proj
+
+
+def transform_points_h(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) points through a (4, 4) row-vector matrix -> (..., 4),
+    summed left to right."""
+    return (v[..., 0:1] * m[0] + v[..., 1:2] * m[1] + v[..., 2:3] * m[2]
+            + m[3])
 
 
 def inverse_affine(m: torch.Tensor) -> torch.Tensor:
