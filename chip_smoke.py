@@ -9,41 +9,55 @@ Phases, each printing one line and raising on failure:
    CUDA versions; TF32 is switched off for matmuls and cuDNN, since the JAX
    package runs its matrix products in full float32 (Precision.HIGHEST);
 2. build: nvcc compiles ``vrenderer_tpu_torch/csrc`` (seconds printed);
-3. kernel vs plain: the CUDA rasterizer against its plain PyTorch version
-   on the card at the 1080p main path's inputs (flythrough cameras 0 and 13,
-   13 being the heavy grazing view): ids and z equal, attrs within 1e-5,
-   both timed with CUDA events;
-4. golden frame: the 256x128 frame of tests/test_golden.py rendered
+3. kernel vs plain: the CUDA rasterizer B1 against its plain PyTorch
+   version on the card at the 1080p horizon path's inputs (flythrough
+   cameras 0 and 13, 13 being the heavy grazing view): ids and z equal,
+   attrs within 1e-5, both timed with CUDA events, beside the bound (the
+   least time the card could take for the input's bytes and operations);
+   then B1 under reverse-z and in wireframe, and kernel B3a under
+   reverse-z, against their plain versions at the same inputs;
+4. two-phase kernels: B3a (z + id) against its plain version and B1's z
+   and id, the winner filter's live (item, cell) pairs, B3b (the winners'
+   attrs) against its plain version and B1's attrs, all bitwise; CUDA-event
+   times of B3a, the filter, B3b, the whole two-phase raster and B1;
+5. golden frame: the 256x128 frame of tests/test_golden.py rendered
    through the kernel, held to the stored frames;
-5. horizon path: the 1080p horizon-shadow flythrough with the boot cube
+6. horizon path: the 1080p horizon-shadow flythrough with the boot cube
    and the cached horizon prepass, all 64 cameras, every frame finite,
    covered in (0, 1) and without overflow; CUDA-event frame times;
-6. depth kernel vs plain: kernel B2 against its plain version and against
+7. two-phase path (this slice's): the same flythrough with
+   ``RasterSettings(two_phase=True)``, each frame's ldr, depth, prim_id and
+   overflow mask bit-identical to phase 6's frame, 65 launches each of B3a
+   and B3b and none of B1; then a few frames each with reverse-z and in
+   wireframe, finite, covered in (0, 1), without overflow;
+8. depth kernel vs plain: kernel B2 against its plain version and against
    kernel B1's z at the map cell's light-pass inputs (2048x2048, cameras 0
    and 13): z bitwise equal to both, both timed with CUDA events; then
    kernel B1 against its plain version at the map path's main-raster
    inputs (768 + 1 instance slots in the light selection's order, the
    membership mask leaving shared slots invalid), as in phase 3;
-7. map golden frame: the 256x128 map-mode frame of
+9. map golden frame: the 256x128 map-mode frame of
    tests/test_torch_map_frame.py, held to the op-by-op JAX frame and light
    passes (camera eye and default eye) stored in
    tests/golden_map_frame_unfused.npz;
-8. map path: the 1080p map-shadow flythrough (bench.py --mode map: light
-   pass from the main eye at 2048x2048, geometry shared with the main
-   pass), all 64 cameras and a warm-up frame, every frame finite, covered
-   in (0, 1) and without overflow (bits 1, 2 and 4); CUDA-event frame
-   times;
-9. cached map variant (bench.py --mode mapcache: light-eye selection and
-   the cached prepass): 8 cameras bit-identical to inline frames, one
-   light raster for the cached loop, ``render_shadow_depth`` equal to the
-   cached map.
+10. map path: the 1080p map-shadow flythrough (bench.py --mode map: light
+    pass from the main eye at 2048x2048, geometry shared with the main
+    pass), all 64 cameras and a warm-up frame, every frame finite, covered
+    in (0, 1) and without overflow (bits 1, 2 and 4); CUDA-event frame
+    times;
+11. cached map variant (bench.py --mode mapcache: light-eye selection and
+    the cached prepass): 8 cameras bit-identical to inline frames, one
+    light raster for the cached loop, ``render_shadow_depth`` equal to the
+    cached map.
 
 Each path's kernel launches are counted from 0 just before it runs. Then
-one JSON line with each kernel's launches, error and times on the map
-path (this slice's main path; B1's horizon-path numbers are in phase 3's
-lines), the nvidia-smi line, and as the last line
-``{"ok": true, "device": {...}}``. Without a CUDA device it raises and
-prints no result.
+one JSON line with each kernel's launches (on its path: B1 and B2 on the
+map path, B3a and B3b on the two-phase path), and its error, times and
+bound at camera 13, with each camera's under ``cameras`` (B1's at the
+map path's inputs, B3a's and B3b's at the horizon path's); the bound's
+operations count the (triangle, pixel) pairs the triangles cover; then
+the nvidia-smi line, and as the last line ``{"ok": true, "device":
+{...}}``. Without a CUDA device it raises and prints no result.
 """
 
 from __future__ import annotations
@@ -65,8 +79,18 @@ MAX_ACTIVE, MAX_WORK = 512, 2048    # bench.py's horizon-mode budgets
 MAP_MAX_ACTIVE = 768                # bench.py's map-mode render budget
 SHADOW_RES = 2048                   # bench.py's light-map resolution
 KERNEL_CAMERAS = (0, 13)
+JSON_CAMERA = 13                    # the heavy grazing view
 CACHED_CAMERAS = 8
+MODE_CAMERAS = (0, 13, 32)          # frames of the reverse-z and wire modes
 ATTR_TOL = 1e-5   # kernel and plain round every plane op the same way
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+VIS_BYTES = 64        # one triangle's 16 visibility floats
+COEF_BYTES = 108      # one triangle's 27 attribute plane coefficients
+PAIR_OPS = 16         # 3 edge + 1 depth plane per (triangle, pixel) pair
+RESOLVE_OPS = 44      # 9 planes and 8 divisions per covered pixel
 
 
 def log(msg: str) -> None:
@@ -95,6 +119,52 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    float32 operations over the peak rate, whichever is longer."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def raster_work(vis, work, width: int, height: int, tile: int):
+    """This input's data-dependent raster work: (bytes of the work list and
+    of the visibility rows of its instances, (triangle, pixel) pairs the
+    triangles cover, pairs the visibility pass evaluates). A covered pair
+    needs its 3 edge planes and its depth plane; the bbox pairs that the
+    kernel's walk evaluates and rejects are its design's cost, not the
+    function's, so the bound counts covered pairs only."""
+    import torch
+
+    from vrenderer_tpu_torch.ops import raster_cuda
+
+    n_inst = int(torch.unique(work.items[work.items[:, 0] >= 0, 0]).numel())
+    evaluated = int(raster_cuda.pair_rects(vis, work, width, height,
+                                           tile).cnt.sum())
+    covered = sum(int(pix.numel()) for pix, _, _ in
+                  raster_cuda._covered_pairs(vis, work, width, height, tile,
+                                             1 << 21))
+    return (work.items.numel() * 4 + n_inst * vis.shape[1] * VIS_BYTES,
+            covered, evaluated)
+
+
+def winner_bytes(ids) -> int:
+    """Bytes of the attribute coefficients of the distinct winners."""
+    import torch
+
+    return int(torch.unique(ids[ids >= 0]).numel()) * COEF_BYTES
+
+
+def per_camera(per_cam) -> dict:
+    """One kernel's JSON numbers from its per-camera ones (in
+    KERNEL_CAMERAS order): camera JSON_CAMERA's at the top level, so that
+    every number and ``bound_by`` there belong to one view, and each
+    camera's under ``cameras``."""
+    by_cam = dict(zip(KERNEL_CAMERAS, per_cam))
+    return {**by_cam[JSON_CAMERA], "camera": JSON_CAMERA,
+            "cameras": {str(c): d for c, d in by_cam.items()}}
 
 
 def bench_renderer(device, max_active=MAX_ACTIVE, **cfg_kw):
@@ -127,7 +197,7 @@ def phase_kernel(name, r, params, prepass, cams) -> dict:
 
     cfg = r.config
     args = (cfg.width, cfg.height, cfg.raster.tile_w)
-    errs, ms, plain_ms = [], [], []
+    per_cam = []
     for i in KERNEL_CAMERAS:
         packed, work = r.raster_inputs(cams.frame(i), params, prepass)
         ref = raster_cuda.rasterize_plain(packed, work, *args)
@@ -147,16 +217,21 @@ def phase_kernel(name, r, params, prepass, cams) -> dict:
         k_ms = cuda_ms(lambda: raster_cuda.rasterize(packed, work, *args), 20)
         p_ms = cuda_ms(
             lambda: raster_cuda.rasterize_plain(packed, work, *args), 3)
-        covered = float((out[1] >= 0).float().mean())
+        n_px = int((out[1] >= 0).sum())
+        in_bytes, pairs, evaluated = raster_work(packed.vis, work, *args)
+        b = bound(in_bytes + winner_bytes(out[1])
+                  + cfg.width * cfg.height * 40,
+                  pairs * PAIR_OPS + n_px * RESOLVE_OPS)
         log(f"kernel ({name} path) camera {i}: ids/z equal, attrs max abs "
             f"err {err:.3g}, instance slots {packed.vis.shape[0]}, work "
-            f"items {int(work.num_items)}, covered {covered:.4f}, kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
-        errs.append(err)
-        ms.append(k_ms)
-        plain_ms.append(p_ms)
-    return {"max_abs_err": max(errs), "ms": float(np.mean(ms)),
-            "plain_ms": float(np.mean(plain_ms))}
+            f"items {int(work.num_items)}, covered "
+            f"{n_px / (cfg.width * cfg.height):.4f}, (triangle, pixel) "
+            f"pairs covered {pairs} of {evaluated} evaluated, kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        per_cam.append({"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                        **b})
+    return per_camera(per_cam)
 
 
 def phase_golden(device) -> None:
@@ -213,26 +288,41 @@ def phase_golden(device) -> None:
 def reset_launches() -> None:
     from vrenderer_tpu_torch.ops import raster_cuda
 
-    raster_cuda.rasterize.launches = 0
-    raster_cuda.rasterize_depth.launches = 0
+    for fn in launch_counted():
+        fn.launches = 0
+
+
+def launch_counted():
+    from vrenderer_tpu_torch.ops import raster_cuda
+
+    return (raster_cuda.rasterize, raster_cuda.rasterize_depth,
+            raster_cuda.rasterize_zid, raster_cuda.rasterize_resolve)
 
 
 def read_launches() -> dict:
-    from vrenderer_tpu_torch.ops import raster_cuda
+    return dict(zip(("raster", "raster_depth", "raster_zid",
+                     "raster_resolve"),
+                    (fn.launches for fn in launch_counted())))
 
-    return {"raster": raster_cuda.rasterize.launches,
-            "raster_depth": raster_cuda.rasterize_depth.launches}
+
+def launches(raster=0, raster_depth=0, raster_zid=0, raster_resolve=0):
+    """The expected counts of ``read_launches``."""
+    return {"raster": raster, "raster_depth": raster_depth,
+            "raster_zid": raster_zid, "raster_resolve": raster_resolve}
 
 
-def phase_flythrough(name, r, params, cams, prepass=None):
-    """All 64 flythrough frames after a warm-up frame; returns the
-    CUDA-event frame times and the kernel launches of the run."""
+def phase_flythrough(name, r, params, cams, prepass=None, frames=None,
+                     keep=None):
+    """The flythrough frames ``frames`` (default all 64) after a warm-up
+    frame; returns the CUDA-event frame times and the kernel launches of
+    the run. ``keep``, a list, receives each frame's output."""
     import torch
 
+    frames = range(cams.eye.shape[0]) if frames is None else frames
     reset_launches()
-    r.render(cams.frame(0), params, shadow_prepass=prepass)   # warm-up
+    r.render(cams.frame(frames[0]), params, shadow_prepass=prepass)  # warm-up
     times, stats = [], []
-    for i in range(cams.eye.shape[0]):
+    for i in frames:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -247,11 +337,13 @@ def phase_flythrough(name, r, params, cams, prepass=None):
             out.num_instances.float(),
         ]))
         times.append((start, end))
+        if keep is not None:
+            keep.append(out)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launched = read_launches()
     ms = [s.elapsed_time(e) for s, e in times]
     st = torch.stack(stats).cpu().numpy()
-    for i, (fin_l, fin_h, cov, mask, n_work, n_inst) in enumerate(st):
+    for i, (fin_l, fin_h, cov, mask, n_work, n_inst) in zip(frames, st):
         if not (fin_l == 1 and fin_h == 1 and 0.0 < cov < 1.0 and mask == 0
                 and n_work <= r.max_work):
             raise RuntimeError(
@@ -262,8 +354,175 @@ def phase_flythrough(name, r, params, cams, prepass=None):
     log(f"{name} path: {len(ms)} frames finite, no overflow; coverage "
         f"{st[:, 2].min():.4f}-{st[:, 2].max():.4f}, work items "
         f"{int(st[:, 4].min())}-{int(st[:, 4].max())}, instances "
-        f"{int(st[:, 5].min())}-{int(st[:, 5].max())}; launches {launches}")
-    return ms, launches
+        f"{int(st[:, 5].min())}-{int(st[:, 5].max())}; launches {launched}")
+    return ms, launched
+
+
+def phase_modes_kernel(r, params, prepass, cams) -> None:
+    """Kernel B1 under reverse-z and in wireframe (timed with CUDA events),
+    and kernel B3a under reverse-z, against their plain versions at the
+    horizon path's inputs: ids and z equal, attrs within ATTR_TOL."""
+    import torch
+
+    from vrenderer_tpu_torch.ops import raster_cuda
+
+    cfg = r.config
+    args = (cfg.width, cfg.height, cfg.raster.tile_w)
+    for i in KERNEL_CAMERAS:
+        packed, work = r.raster_inputs(cams.frame(i), params, prepass)
+        msg, b1 = [], {}
+        for name, mode in (("reverse-z", {"reverse_z": True}),
+                           ("wireframe", {"wire_px": 1.0})):
+            out = raster_cuda.rasterize(packed, work, *args, **mode)
+            ref = raster_cuda.rasterize_plain(packed, work, *args, **mode)
+            err = float((out[2] - ref[2]).abs().max())
+            if not (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+                    and err <= ATTR_TOL):
+                raise RuntimeError(f"camera {i}: B1 {name} differs from "
+                                   f"plain (attrs {err})")
+            k_ms = cuda_ms(lambda: raster_cuda.rasterize(packed, work, *args,
+                                                         **mode), 20)
+            msg.append(f"B1 {name} ids/z equal, attrs max abs err {err:.3g}, "
+                       f"covered {float((out[1] >= 0).float().mean()):.4f}, "
+                       f"kernel {k_ms:.4f} ms")
+            b1[name] = out
+        z, ids = raster_cuda.rasterize_zid(packed, work, *args,
+                                           reverse_z=True)
+        zp, idp = raster_cuda.rasterize_zid_plain(packed, work, *args,
+                                                  reverse_z=True)
+        if not (torch.equal(z, zp) and torch.equal(ids, idp)
+                and torch.equal(z, b1["reverse-z"][0])
+                and torch.equal(ids, b1["reverse-z"][1])):
+            raise RuntimeError(f"camera {i}: B3a reverse-z differs from plain "
+                               f"or from B1")
+        log(f"modes camera {i}: {'; '.join(msg)}; B3a reverse-z z/ids equal "
+            f"to plain and to B1's")
+
+
+def phase_two_phase_kernels(r, params, prepass, cams):
+    """Kernels B3a and B3b at the horizon path's inputs: B3a's z and id
+    bitwise equal to its plain version and to B1's, the winner filter's
+    live (item, cell) pairs, B3b's attrs bitwise equal to its plain version
+    and to B1's; CUDA-event times of B3a, the filter, B3b, the whole
+    two-phase raster and B1. Returns the JSON numbers of B3a and B3b."""
+    import torch
+
+    from vrenderer_tpu_torch.ops import raster_cuda
+
+    cfg = r.config
+    rs = cfg.raster
+    W, H, tile = cfg.width, cfg.height, rs.tile_w
+    cells = dict(sub_h=rs.subtile_h, win_w=rs.win_w)
+    zid_cam, res_cam = [], []
+    for i in KERNEL_CAMERAS:
+        packed, work = r.raster_inputs(cams.frame(i), params, prepass)
+        T = packed.vis.shape[1]
+        b1 = raster_cuda.rasterize(packed, work, W, H, tile)
+        z, ids = raster_cuda.rasterize_zid(packed, work, W, H, tile)
+        zp, idp = raster_cuda.rasterize_zid_plain(packed, work, W, H, tile)
+        if not (torch.equal(z, zp) and torch.equal(ids, idp)):
+            raise RuntimeError(f"camera {i}: B3a differs from plain")
+        if not (torch.equal(z, b1[0]) and torch.equal(ids, b1[1])):
+            raise RuntimeError(f"camera {i}: B3a differs from B1's z/id")
+        work2, live = raster_cuda.filter_work_to_winners(work, ids, T, W, H,
+                                                         tile, **cells)
+        attrs = raster_cuda.rasterize_resolve(packed, work2, live, ids, W, H,
+                                              tile, **cells)
+        ap = raster_cuda.rasterize_resolve_plain(packed, work2, live, ids, W,
+                                                 H, tile, **cells)
+        if not torch.equal(attrs, ap):
+            raise RuntimeError(f"camera {i}: B3b differs from plain")
+        if not torch.equal(attrs, b1[2]):
+            raise RuntimeError(f"camera {i}: B3b differs from B1's attrs")
+        two = raster_cuda.rasterize_two_phase(packed, work, W, H, tile,
+                                              reverse_z=False, **cells)
+        if not all(torch.equal(a, b) for a, b in zip(two, b1)):
+            raise RuntimeError(f"camera {i}: two-phase differs from B1")
+
+        t = {
+            "b3a": cuda_ms(lambda: raster_cuda.rasterize_zid(
+                packed, work, W, H, tile), 20),
+            "filter": cuda_ms(lambda: raster_cuda.filter_work_to_winners(
+                work, ids, T, W, H, tile, **cells), 20),
+            "b3b": cuda_ms(lambda: raster_cuda.rasterize_resolve(
+                packed, work2, live, ids, W, H, tile, **cells), 20),
+            "two_phase": cuda_ms(lambda: raster_cuda.rasterize_two_phase(
+                packed, work, W, H, tile, **cells), 20),
+            "b1": cuda_ms(lambda: raster_cuda.rasterize(
+                packed, work, W, H, tile), 20),
+            "b3a_plain": cuda_ms(lambda: raster_cuda.rasterize_zid_plain(
+                packed, work, W, H, tile), 3),
+            "b3b_plain": cuda_ms(lambda: raster_cuda.rasterize_resolve_plain(
+                packed, work2, live, ids, W, H, tile, **cells), 3),
+        }
+        used = int((work.items[:, 0] >= 0).sum())
+        n_live = int(live.sum())
+        n_px = int((ids >= 0).sum())
+        in_bytes, pairs, evaluated = raster_work(packed.vis, work, W, H,
+                                                 tile)
+        b_zid = bound(in_bytes + W * H * 8, pairs * PAIR_OPS)
+        b_res = bound(W * H * (4 + 32) + winner_bytes(ids) + live.numel()
+                      + work2.items.numel() * 4, n_px * RESOLVE_OPS)
+        log(f"two-phase kernels camera {i}: B3a z/id equal to plain and "
+            f"B1, B3b attrs equal to plain and B1, two-phase equal to B1; "
+            f"live (item, cell) pairs {n_live} of {used * live.shape[1]} "
+            f"({n_live / max(used * live.shape[1], 1):.4f}), live items "
+            f"{int((work2.items[:, 0] >= 0).sum())} of {used}; (triangle, "
+            f"pixel) pairs covered {pairs} of {evaluated} evaluated; "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+            + f"; bound B3a {b_zid['bound_ms']:.4f} ms "
+            f"({b_zid['bound_by']}), B3b {b_res['bound_ms']:.4f} ms "
+            f"({b_res['bound_by']})")
+        zid_cam.append({"max_abs_err": float((z - zp).abs().max()),
+                        "ms": t["b3a"], "plain_ms": t["b3a_plain"], **b_zid})
+        res_cam.append({"max_abs_err": float((attrs - ap).abs().max()),
+                        "ms": t["b3b"], "plain_ms": t["b3b_plain"], **b_res})
+    return per_camera(zid_cam), per_camera(res_cam)
+
+
+def phase_two_phase_path(device, params, cams, single) -> list:
+    """The slice's path: the 1080p horizon flythrough with
+    ``RasterSettings(two_phase=True)``, the boot cube and the cached
+    prepass, all 64 cameras and a warm-up frame; each frame's ldr, depth,
+    prim_id and overflow mask bit-identical to the single-phase frame in
+    ``single``. Returns the frame times and launches."""
+    import torch
+
+    from vrenderer_tpu_torch.config import RasterSettings
+
+    r, _, _ = bench_renderer(device, raster=RasterSettings(two_phase=True))
+    prepass = r.cached_horizon_prepass(params)
+    outs = []
+    ms, launched = phase_flythrough("two-phase horizon", r, params, cams,
+                                    prepass, keep=outs)
+    n = cams.eye.shape[0] + 1           # the frames and the warm-up frame
+    if launched != launches(raster_zid=n, raster_resolve=n):
+        raise RuntimeError(f"two-phase path launches {launched}")
+    for i, (a, b) in enumerate(zip(outs, single)):
+        for f in ("ldr", "depth", "prim_id", "overflow_mask"):
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise RuntimeError(f"two-phase frame {i}: {f} differs from "
+                                   f"the single-phase frame")
+    log(f"two-phase horizon path: {len(outs)} frames bit-identical to the "
+        f"single-phase frames (ldr, depth, prim_id, overflow_mask)")
+    return ms, launched
+
+
+def phase_mode_frames(device, params, cams) -> None:
+    """A few 1080p horizon frames with reverse-z and in wireframe: finite,
+    covered in (0, 1), no overflow, one B1 launch each."""
+    from vrenderer_tpu_torch.config import RasterSettings
+
+    for name, kw in (("reverse-z", {"reverse_z": True}),
+                     ("wireframe", {"wireframe": True})):
+        r, _, _ = bench_renderer(device, raster=RasterSettings(**kw))
+        prepass = r.cached_horizon_prepass(params)
+        ms, launched = phase_flythrough(f"{name} horizon", r, params, cams,
+                                        prepass, frames=MODE_CAMERAS)
+        if launched != launches(raster=len(MODE_CAMERAS) + 1):
+            raise RuntimeError(f"{name} frames launches {launched}")
+        log(f"{name} frame times (cameras {MODE_CAMERAS}): "
+            + ", ".join(f"{m:.3f} ms" for m in ms))
 
 
 def phase_depth_kernel(r, params, cams) -> dict:
@@ -275,7 +534,7 @@ def phase_depth_kernel(r, params, cams) -> dict:
 
     res = r.config.shadow_resolution
     args = (res, res, r.config.raster.tile_w)
-    errs, ms, plain_ms = [], [], []
+    per_cam = []
     for i in KERNEL_CAMERAS:
         vis, work = r.light_raster_inputs(cams.frame(i), params)
         ref = raster_cuda.rasterize_depth_plain(vis, work, *args)
@@ -302,14 +561,17 @@ def phase_depth_kernel(r, params, cams) -> dict:
         p_ms = cuda_ms(
             lambda: raster_cuda.rasterize_depth_plain(vis, work, *args), 3)
         covered = float((z < 2.0).float().mean())
+        in_bytes, pairs, evaluated = raster_work(vis, work, *args)
+        b = bound(in_bytes + res * res * 4, pairs * PAIR_OPS)
         log(f"depth kernel camera {i}: z equal to plain and to B1, work "
             f"items {int(work.num_items)} (max_work {r.max_work}), covered "
-            f"{covered:.4f}, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-        errs.append(err)
-        ms.append(k_ms)
-        plain_ms.append(p_ms)
-    return {"max_abs_err": max(errs), "ms": float(np.mean(ms)),
-            "plain_ms": float(np.mean(plain_ms))}
+            f"{covered:.4f}, (triangle, pixel) pairs covered {pairs} of "
+            f"{evaluated} evaluated, kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        per_cam.append({"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                        **b})
+    return per_camera(per_cam)
 
 
 def map_golden_renderer(device):
@@ -390,7 +652,7 @@ def phase_map_golden(device) -> None:
         f"{maps[0][0]:.6f}/{maps[1][0]:.6f}, |dz| <= 1e-4 on "
         f"{maps[0][1]:.4f}/{maps[1][1]:.4f} (median {maps[0][2]:.3g}/"
         f"{maps[1][2]:.3g}); launches {launched}")
-    if launched != {"raster": 1, "raster_depth": 3}:
+    if launched != launches(raster=1, raster_depth=3):
         raise RuntimeError("the inline map frame did not run both kernels")
     if not (same.mean() >= 0.999 and d[same].max() < 5e-3
             and d.mean() < 5e-4 and (prim >= n_terrain).sum() > 200):
@@ -418,9 +680,9 @@ def phase_map_cached(device, params, cams) -> None:
                        shadow_prepass=r.cached_shadow_prepass(params))
         cached.append(out)
     torch.cuda.synchronize()
-    launches = read_launches()
-    if launches != {"raster": CACHED_CAMERAS, "raster_depth": 1}:
-        raise RuntimeError(f"cached loop launches {launches}")
+    launched = read_launches()
+    if launched != launches(raster=CACHED_CAMERAS, raster_depth=1):
+        raise RuntimeError(f"cached loop launches {launched}")
     for i, out in enumerate(cached):
         inline = r.render(cams.frame(i), params)
         for f in ("ldr", "hdr", "depth", "prim_id", "overflow_mask"):
@@ -436,7 +698,7 @@ def phase_map_cached(device, params, cams) -> None:
                        r.cached_shadow_prepass(params)[0]):
         raise RuntimeError("render_shadow_depth differs from the prepass")
     log(f"map cached variant: {CACHED_CAMERAS} cached frames bit-identical "
-        f"to inline frames; cached loop launches {launches}; "
+        f"to inline frames; cached loop launches {launched}; "
         f"render_shadow_depth equals the cached map")
 
 
@@ -472,15 +734,26 @@ def main() -> int:
     r, params, cams = bench_renderer(device)
     prepass = r.cached_horizon_prepass(params)
     phase_kernel("horizon", r, params, prepass, cams)
+    phase_modes_kernel(r, params, prepass, cams)
+    kern_zid, kern_res = phase_two_phase_kernels(r, params, prepass, cams)
     phase_golden(device)
-    ms, launches = phase_flythrough("horizon", r, params, cams, prepass)
+    single = []
+    ms, launched = phase_flythrough("horizon", r, params, cams, prepass,
+                                    keep=single)
     # 64 frames + the warm-up frame (the prepass was cached before)
-    if launches != {"raster": 65, "raster_depth": 0}:
-        raise RuntimeError(f"horizon path launches {launches}")
+    if launched != launches(raster=65):
+        raise RuntimeError(f"horizon path launches {launched}")
     log(f"horizon frame times ({card}): mean {np.mean(ms):.3f} ms, p50 "
         f"{np.median(ms):.3f} ms, max {np.max(ms):.3f} ms over 64 frames "
         f"(CUDA events, 1920x1152)")
     del r
+    two_ms, two_launches = phase_two_phase_path(device, params, cams, single)
+    log(f"two-phase frame times ({card}): mean {np.mean(two_ms):.3f} ms, "
+        f"p50 {np.median(two_ms):.3f} ms, max {np.max(two_ms):.3f} ms over "
+        f"64 frames (CUDA events, 1920x1152); single-phase in this run: "
+        f"mean {np.mean(ms):.3f} ms")
+    del single
+    phase_mode_frames(device, params, cams)
 
     rm, _, _ = bench_renderer(device, max_active=MAP_MAX_ACTIVE,
                               shadow_mode="map", shadow_resolution=SHADOW_RES)
@@ -488,7 +761,7 @@ def main() -> int:
     kern = phase_kernel("map", rm, params, None, cams)
     phase_map_golden(device)
     map_ms, map_launches = phase_flythrough("map", rm, params, cams)
-    if map_launches != {"raster": 65, "raster_depth": 65}:
+    if map_launches != launches(raster=65, raster_depth=65):
         raise RuntimeError(f"map path launches {map_launches}")
     log(f"map frame times ({card}): mean {np.mean(map_ms):.3f} ms, p50 "
         f"{np.median(map_ms):.3f} ms, max {np.max(map_ms):.3f} ms over 64 "
@@ -496,21 +769,24 @@ def main() -> int:
     del rm
     phase_map_cached(device, params, cams)
 
-    print(json.dumps({"kernels": [{
-        "name": "raster",
-        "route": "cuda",
-        "source": "vrenderer_tpu_torch/csrc/raster.cu",
-        "replaces": "vrenderer_tpu/ops/raster_pallas.py:598",
-        "launches": map_launches["raster"],
-        **kern,
-    }, {
-        "name": "raster_depth",
-        "route": "cuda",
-        "source": "vrenderer_tpu_torch/csrc/raster.cu",
-        "replaces": "vrenderer_tpu/ops/raster_pallas.py:1121",
-        "launches": map_launches["raster_depth"],
-        **kern_d,
-    }]}))
+    src = "vrenderer_tpu_torch/csrc/raster.cu"
+    print(json.dumps({"kernels": [
+        {"name": "raster", "route": "cuda", "source": src,
+         "replaces": "vrenderer_tpu/ops/raster_pallas.py:598",
+         "launches": map_launches["raster"], **kern, "library_ms": None},
+        {"name": "raster_depth", "route": "cuda", "source": src,
+         "replaces": "vrenderer_tpu/ops/raster_pallas.py:1121",
+         "launches": map_launches["raster_depth"], **kern_d,
+         "library_ms": None},
+        {"name": "raster_zid", "route": "cuda", "source": src,
+         "replaces": "vrenderer_tpu/ops/raster_pallas.py:1209",
+         "launches": two_launches["raster_zid"], **kern_zid,
+         "library_ms": None},
+        {"name": "raster_resolve", "route": "cuda", "source": src,
+         "replaces": "vrenderer_tpu/ops/raster_pallas.py:1573",
+         "launches": two_launches["raster_resolve"], **kern_res,
+         "library_ms": None},
+    ]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

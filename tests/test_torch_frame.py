@@ -43,7 +43,8 @@ def _port_renderer_cfg(cfg, scene=None):
     from vrenderer_tpu_torch.terrain import heightmap as hmod
 
     hm = hmod.procedural_heightmap(64, seed=7)
-    return Renderer(cfg, hm, hmod.procedural_albedo(hm), scene=scene)
+    return Renderer(cfg, hm, hmod.procedural_albedo(hm), scene=scene,
+                    device="cpu")
 
 
 def _port_renderer(scene=None):
@@ -143,17 +144,17 @@ def test_render_launches_no_kernel_on_cpu():
 
 
 def test_unported_paths_raise():
-    """Two-phase rasterization, lock-view, eye adaptation, screen bands
-    and pipeline reload point to ROADMAP.md instead of rendering."""
+    """Lock-view, eye adaptation, screen bands and pipeline reload point to
+    ROADMAP.md instead of rendering; every raster setting builds."""
     import dataclasses
 
     import pytest
 
     from vrenderer_tpu_torch.config import RasterSettings
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_renderer_cfg(dataclasses.replace(
-            CFG, raster=RasterSettings(two_phase=True)))
+    for kw in ({"two_phase": True}, {"reverse_z": True}, {"wireframe": True}):
+        _port_renderer_cfg(dataclasses.replace(CFG,
+                                               raster=RasterSettings(**kw)))
     r = _port_renderer()
     _, cam = cameras(GOLDEN_EYE, GOLDEN_TARGET)
     _, params = frame_params_pair()
@@ -163,6 +164,25 @@ def test_unported_paths_raise():
     for fn in (r.render_adaptive, r.render_locked, r.reload_pipelines):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn()
+
+
+def test_renderer_defaults_to_the_card(monkeypatch):
+    """Without ``device`` the Renderer takes the CUDA device; where there
+    is none it raises and names ``device="cpu"``, which renders."""
+    import pytest
+
+    from vrenderer_tpu_torch.terrain import heightmap as hmod
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hm = hmod.procedural_heightmap(64, seed=7)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Renderer(CFG, hm, hmod.procedural_albedo(hm))
+    _, cam = cameras(GOLDEN_EYE, GOLDEN_TARGET)
+    _, params = frame_params_pair()
+    r = Renderer(CFG, hm, hmod.procedural_albedo(hm), device="cpu")
+    out = r.render(cam, params)
+    assert r.device.type == "cpu" and out.prim_id.device.type == "cpu"
+    assert (out.prim_id >= 0).any()
 
 
 if __name__ == "__main__":

@@ -91,7 +91,7 @@ def renderers(cube=True, jax_kw=None, **cfg_kw):
     r = Renderer(convert.frame_config(dataclasses.asdict(cfg)), thm,
                  th.procedural_albedo(thm),
                  scene=_port_scene(js) if cube else None,
-                 max_active=jr.max_active)
+                 max_active=jr.max_active, device="cpu")
     return jr, r
 
 
@@ -220,7 +220,7 @@ def test_shadow_budget_overflow_sets_bit_4():
                    max_active=4)
     hm = th.procedural_heightmap(64, seed=5)
     r = Renderer(convert.frame_config(dataclasses.asdict(cfg)), hm,
-                 th.procedural_albedo(hm), max_active=4)
+                 th.procedural_albedo(hm), max_active=4, device="cpu")
     jcam, cam = cameras(GOLDEN_EYE, [0.0, 2.0, 0.0])
     jp, params = frame_params_pair()
     o = r.render(cam, params)

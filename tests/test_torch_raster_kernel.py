@@ -2,8 +2,11 @@
 the lowest id, -0.0 tying +0.0, NaN and invalid triangles never covering,
 the inclusive bbox scissor, the wrappers' checks and launch counts, the
 depth-only raster's z equal to the full raster's with an F32_FAR (never
-NaN) background; and on the card, the CUDA kernels B1 and B2 equal to
-their plain versions on whole frames' raster and light-view inputs.
+NaN) background, reverse-z (farthest wins, ties to the lowest id, -F32_FAR
+background), the wireframe cover rule, and the two-phase raster equal to
+the single-phase one; and on the card, the CUDA kernels B1, B2, B3a and B3b
+equal to their plain versions on whole frames' raster and light-view
+inputs.
 
 CPU cases run the plain version; CUDA cases (marker ``cuda``) launch the
 kernel and skip where there is no card. The file imports no JAX, so on the
@@ -115,8 +118,9 @@ def test_wrapper_validates_and_counts_only_kernel_launches(device):
     raster_cuda.rasterize(packed, work, W, H)
     # CPU tensors run the plain version, which is no launch
     assert raster_cuda.rasterize.launches == before + (device.type == "cuda")
-    with pytest.raises(NotImplementedError):
-        raster_cuda.rasterize(packed, work, W, H, reverse_z=True)
+    raster_cuda.rasterize(packed, work, W, H, reverse_z=True, wire_px=1.0)
+    assert raster_cuda.rasterize.launches == before + 2 * (
+        device.type == "cuda")
     with pytest.raises(ValueError):
         raster_cuda.rasterize(packed._replace(vis=packed.vis.double()), work,
                               W, H)
@@ -275,3 +279,163 @@ def test_cuda_depth_kernel_matches_plain_on_light_inputs(cuda_device, eye,
     z_full = raster_cuda.rasterize(raster_cuda.PackedTris(vis, coef), work,
                                    res, res)[0]
     assert torch.equal(z, z_full)
+
+
+def _pair(planes, device, bbox=None):
+    n = len(planes)
+    full = np.array([0, 0, W - 1, H - 1], np.float32)
+    return _packed(np.stack(planes), np.stack([full] * n) if bbox is None
+                   else bbox, np.ones(n, bool), device)
+
+
+_NEG = np.array([0, 0, 1, 0, 0, 1, 0, 0, 1, -0.0, -0.0, -0.0], np.float32)
+
+
+@pytest.mark.parametrize("two_phase", [False, True])
+def test_reverse_z_keeps_farthest_with_ties_to_lowest_id(device, two_phase):
+    """Reverse-z: the farthest z wins, equal z goes to the lowest id, -0.0
+    ties +0.0 and loses to any positive z; the background is -F32_FAR."""
+    cases = [
+        ([_full_frame_triangle(0.5), _full_frame_triangle(0.5)], 0, 0.5),
+        ([_full_frame_triangle(0.5), _full_frame_triangle(0.25)], 0, 0.5),
+        ([_full_frame_triangle(0.25), _full_frame_triangle(0.5)], 1, 0.5),
+        ([_full_frame_triangle(0.0), _NEG], 0, 0.0),
+        ([_NEG, _full_frame_triangle(0.0)], 0, 0.0),
+        ([_NEG, _full_frame_triangle(0.25)], 1, 0.25),
+    ]
+    work = raster_cuda.full_work_list(2, W, H, device=device)
+    for planes, winner, zw in cases:
+        packed = _pair(planes, device)
+        if two_phase:
+            z, ids, attrs = raster_cuda.rasterize_two_phase(
+                packed, work, W, H, reverse_z=True)
+        else:
+            z, ids, attrs = raster_cuda.rasterize(packed, work, W, H,
+                                                  reverse_z=True)
+        z, ids, attrs = (x.cpu().numpy() for x in (z, ids, attrs))
+        assert np.all(ids == winner)
+        assert np.all(z == np.float32(zw)) and not np.signbit(z).any()
+        assert np.all(attrs[..., 3] == 10.0 * winner + 3)
+    # only the second triangle, scissored: -F32_FAR outside it
+    bbox = np.array([[0, 0, W - 1, H - 1], [10, 3, 40, 90]], np.float32)
+    packed = _packed(np.stack([_full_frame_triangle(0.5)] * 2), bbox,
+                     np.array([False, True]), device)
+    z, ids = raster_cuda.rasterize_zid(packed, work, W, H, reverse_z=True)
+    z, ids = z.cpu().numpy(), ids.cpu().numpy()
+    inside = np.zeros((H, W), bool)
+    inside[3:91, 10:41] = True
+    assert np.all(ids[inside] == 1) and np.all(ids[~inside] == -1)
+    assert np.all(z[~inside] == -raster_cuda.F32_FAR)
+
+
+def _wire_triangle():
+    """A right triangle with vertices (10, 10), (100, 10), (10, 100) in
+    pixels and gradient-normalised edges (E = distance inside)."""
+    r = np.float32(1.0 / np.sqrt(2.0))
+    planes = np.array([0, 1, -10, 1, 0, -10, -r, -r, 110 * r, 0, 0, 0.5],
+                      np.float32)
+    return planes[None], np.array([[10, 10, 100, 100]], np.float32)
+
+
+def test_wireframe_leaves_the_interior_uncovered(device):
+    planes, bbox = _wire_triangle()
+    packed = _packed(planes, bbox, np.array([True]), device)
+    work = raster_cuda.full_work_list(1, W, H, device=device)
+    fill = raster_cuda.rasterize(packed, work, W, H)[1].cpu().numpy() >= 0
+    z, ids, attrs = raster_cuda.rasterize(packed, work, W, H, wire_px=1.0)
+    wire = ids.cpu().numpy() >= 0
+    assert fill[50, 50] and not wire[50, 50]
+    assert wire[10, 50] and wire[50, 10] and wire[10, 10]
+    assert np.all(fill[wire]) and wire.sum() < fill.sum() // 10
+    # a pixel covers iff its centre lies within 1 px of an edge
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32) + 0.5
+    e = np.minimum(np.minimum(y - 10, x - 10),
+                   (110 - x - y) / np.float32(np.sqrt(2.0)))
+    assert np.all(e[wire] <= 1.0 + 1e-5) and np.all(e[fill & ~wire] > 1.0 - 1e-5)
+    assert np.all(attrs.cpu().numpy()[~wire] == 0.0)
+
+
+def test_two_phase_wrappers_validate_and_count_only_kernel_launches(device):
+    packed = _pair([_full_frame_triangle(0.5)], device)
+    work = raster_cuda.full_work_list(1, W, H, device=device)
+    on_card = device.type == "cuda"
+    b_zid = raster_cuda.rasterize_zid.launches
+    b_res = raster_cuda.rasterize_resolve.launches
+    b_b1 = raster_cuda.rasterize.launches
+    z, ids = raster_cuda.rasterize_zid(packed, work, W, H)
+    work2, live = raster_cuda.filter_work_to_winners(work, ids, 1, W, H)
+    assert live.shape == (work.items.shape[0], 8) and live.dtype == torch.bool
+    raster_cuda.rasterize_resolve(packed, work2, live, ids, W, H)
+    raster_cuda.rasterize_two_phase(packed, work, W, H)
+    assert raster_cuda.rasterize_zid.launches == b_zid + 2 * on_card
+    assert raster_cuda.rasterize_resolve.launches == b_res + 2 * on_card
+    assert raster_cuda.rasterize.launches == b_b1
+    other = "cpu" if on_card else "meta"
+    with pytest.raises(ValueError):
+        raster_cuda.rasterize_zid(packed._replace(vis=packed.vis.double()),
+                                  work, W, H)
+    with pytest.raises(ValueError):
+        raster_cuda.rasterize_zid(packed, work._replace(
+            items=work.items.to(other)), W, H)
+    bad = [(live.to(torch.uint8), ids), (live[:, :4].contiguous(), ids),
+           (live, ids.long()), (live, ids[:, :-1].contiguous()),
+           (live, ids.t()), (live.to(other), ids)]
+    for lv, i in bad:
+        with pytest.raises(ValueError):
+            raster_cuda.rasterize_resolve(packed, work2, lv, i, W, H)
+    with pytest.raises(ValueError):      # cells must tile the supertile
+        raster_cuda.rasterize_resolve(packed, work2, live, ids, W, H,
+                                      sub_h=24)
+    with pytest.raises(ValueError):
+        raster_cuda.filter_work_to_winners(work, ids, 1, W, H, win_w=96)
+    assert raster_cuda.rasterize_resolve.launches == b_res + 2 * on_card
+
+
+@pytest.mark.parametrize("eye,target", [
+    ([0.0, 25.0, 45.0], [0.0, 0.0, 0.0]),
+    ([25.0, 8.0, 25.0], [-10.0, 2.0, -10.0]),
+])
+def test_two_phase_equals_single_phase_on_frame_inputs(device, eye, target):
+    """The two-phase raster equals ``rasterize`` bit for bit, in both depth
+    directions; on the card each phase also equals its plain version."""
+    from vrenderer_tpu_torch.camera import Camera
+    from vrenderer_tpu_torch.renderer import FrameParams
+
+    def v(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+
+    r = _golden_renderer(device)
+    params = FrameParams.default(device=device)._replace(max_height=v(12.0))
+    packed, work = r.raster_inputs(
+        Camera(v(eye), v(target), v([0.0, 1.0, 0.0])), params)
+    T = packed.vis.shape[1]
+    for reverse_z in (False, True):
+        ref = raster_cuda.rasterize(packed, work, W, H, reverse_z=reverse_z)
+        out = raster_cuda.rasterize_two_phase(packed, work, W, H,
+                                              reverse_z=reverse_z)
+        assert (ref[1] >= 0).float().mean() > 0.2
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+        z, ids = raster_cuda.rasterize_zid(packed, work, W, H,
+                                           reverse_z=reverse_z)
+        work2, live = raster_cuda.filter_work_to_winners(work, ids, T, W, H)
+        assert int(live.sum()) < int((work.items[:, 0] >= 0).sum()) * 8
+        if device.type == "cuda":
+            zp, idp = raster_cuda.rasterize_zid_plain(packed, work, W, H,
+                                                      reverse_z=reverse_z)
+            assert torch.equal(z, zp) and torch.equal(ids, idp)
+            attrs = raster_cuda.rasterize_resolve(packed, work2, live, ids,
+                                                  W, H)
+            assert torch.equal(attrs, raster_cuda.rasterize_resolve_plain(
+                packed, work2, live, ids, W, H))
+            for wire_px in (0.0, 1.0):
+                if not (reverse_z or wire_px):
+                    continue     # test_cuda_kernel_matches_plain_on_frame_inputs
+                b1 = raster_cuda.rasterize(packed, work, W, H,
+                                           reverse_z=reverse_z,
+                                           wire_px=wire_px)
+                pl = raster_cuda.rasterize_plain(packed, work, W, H,
+                                                 reverse_z=reverse_z,
+                                                 wire_px=wire_px)
+                for a, b in zip(b1, pl):
+                    assert torch.equal(a, b)

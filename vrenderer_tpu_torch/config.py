@@ -63,11 +63,14 @@ class TerrainSettings:
 @dataclasses.dataclass(frozen=True)
 class RasterSettings:
     """Static rasterizer configuration. The fields mirror the JAX package so
-    configs convert one to one; the CUDA rasterizer reads ``tile_w`` (the
-    supertile size its work list bins to) and refuses the options it does
-    not implement yet (``two_phase``, ``reverse_z``, ``wireframe``). The
-    remaining fields shape the TPU kernel's VMEM layout and have no
-    meaning here."""
+    configs convert one to one. The CUDA rasterizer reads ``tile_w`` (the
+    supertile size its work list bins to), ``reverse_z`` (the farthest
+    covered z wins), ``wireframe`` (pixels within 1 px of an edge cover)
+    and ``two_phase`` (z + id, then the attributes of the winners only,
+    over the ``subtile_h`` x ``win_w`` cells the winner filter keeps;
+    ignored under wireframe, as in the JAX package; the frame is
+    bit-identical either way). The remaining fields shape the TPU kernel's
+    VMEM layout and have no meaning here."""
 
     tile_h: int = 128
     tile_w: int = 128

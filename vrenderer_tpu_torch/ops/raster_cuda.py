@@ -4,27 +4,37 @@ The frame's triangles are ``I`` instances of ``T`` triangles (terrain
 patches, then scene-mesh blocks). The screen is cut into 128x128
 supertiles, each instance is binned to the supertiles its screen bbox
 meets, and ``rasterize`` resolves every pixel to the minimum-z covering
-triangle (ties to the lowest global id ``inst * T + t``) and its
-perspective-correct attributes.
+triangle (the maximum under ``reverse_z``; ties to the lowest global id
+``inst * T + t``) and its perspective-correct attributes. ``wire_px > 0``
+is the wireframe fill mode: a pixel covers only within ``wire_px`` of an
+edge.
 
-* ``rasterize`` is the wrapper. A CUDA tensor launches the hand-written
-  kernel in ``csrc/raster.cu`` (built by ``_build``), which replaces the
-  Pallas kernel ``raster_pallas._raster_kernel`` (full variant, via
-  ``rasterize_pallas``); ``rasterize.launches`` counts those launches. A
-  CPU tensor runs ``rasterize_plain``.
-* ``rasterize_plain`` is the plain PyTorch version with the same semantics:
-  (triangle, pixel) pairs of each work item are expanded in chunks and
-  merged with ``scatter_reduce("amin")`` on int64 keys
-  ``(z_bits << 32) | gid``. It is the CPU path and the card's reference.
-* ``rasterize_depth`` is the depth-only wrapper for the map-mode light
-  view: it reads only the 16 visibility floats per triangle
-  (``pack_vis``) and returns the minimum covered z, bit-identical to
-  ``rasterize``'s z. A CUDA tensor launches kernel B2 (``vrt_raster_depth``
-  in ``csrc/raster.cu``), which replaces ``raster_pallas._raster_kernel``
-  (depth-only variant, via ``rasterize_pallas_depth``);
-  ``rasterize_depth.launches`` counts those launches. A CPU tensor runs
-  ``rasterize_depth_plain``, the same pair expansion merged with
-  ``scatter_reduce("amin")`` on z.
+Each wrapper launches a hand-written kernel of ``csrc/raster.cu`` (built
+by ``_build``) for CUDA tensors, counting the launches on the wrapper, and
+runs its plain PyTorch version, the CPU path and the card's reference, for
+CPU tensors:
+
+* ``rasterize``: kernel B1 (``vrt_raster``), replacing the Pallas kernel
+  ``raster_pallas._raster_kernel`` (full variant, via
+  ``rasterize_pallas``). ``rasterize_plain`` expands the (triangle, pixel)
+  pairs of each work item in chunks and merges them with
+  ``scatter_reduce("amin")`` on int64 keys ``(z_key << 32) | gid``.
+* ``rasterize_depth``: kernel B2 (``vrt_raster_depth``), the map-mode
+  light view's depth-only raster, replacing
+  ``_raster_kernel(depth_only)`` (via ``rasterize_pallas_depth``). It reads
+  only the 16 visibility floats per triangle (``pack_vis``) and returns
+  the minimum covered z, bit-identical to ``rasterize``'s z;
+  ``rasterize_depth_plain`` merges the same pairs with a float ``amin``.
+* Two-phase rasterization (``RasterSettings.two_phase``),
+  ``rasterize_two_phase``: ``rasterize_zid``, kernel B3a
+  (``vrt_raster_zid``, replacing ``_raster_kernel(depth_only, with_id)``
+  via ``rasterize_pallas_zid``), rasters z and the winner id, bit-identical
+  to ``rasterize``'s; ``filter_work_to_winners`` (plain PyTorch, as in the
+  JAX package) keeps the (work item, cell) pairs whose instance may have
+  won a pixel of the cell; ``rasterize_resolve``, kernel B3b
+  (``vrt_raster_resolve``, replacing ``_resolve_kernel`` via
+  ``rasterize_pallas_resolve``), evaluates the winners' attributes over
+  the live pairs, bit-identical to ``rasterize``'s.
 
 The work list keeps the JAX package's count (one leading dummy per
 supertile plus every overlapping (usable instance, supertile) pair, so
@@ -215,6 +225,9 @@ def _launch(entry: str, device: torch.device, *args) -> None:
     ``device``; raise if the launch failed."""
     from vrenderer_tpu_torch.ops import _build
 
+    if device.type != "cuda":
+        raise ValueError(f"no rasterizer for device {device}")
+
     lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -223,38 +236,159 @@ def _launch(entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
 
+def _zid_outputs(width: int, height: int, device: torch.device):
+    """Empty z (H, W) float32, id (H, W) int32 and the key scratch."""
+    return (torch.empty((height, width), dtype=torch.float32, device=device),
+            torch.empty((height, width), dtype=torch.int32, device=device),
+            torch.empty((height * width,), dtype=torch.int64, device=device))
+
+
 def rasterize(packed: PackedTris, work: WorkList, width: int, height: int,
               tile: int = TILE, reverse_z: bool = False,
               wire_px: float = 0.0):
-    """Returns (z (H, W) float32, F32_FAR background; id (H, W) int32, -1
-    background; attrs (H, W, 8) float32, perspective-divided, 0 on the
-    background). CUDA tensors launch the kernel, CPU tensors run
-    ``rasterize_plain``."""
-    if reverse_z or wire_px > 0.0:
-        raise NotImplementedError("reverse_z and wireframe are not ported "
-                                  "yet (ROADMAP.md, A14)")
+    """Returns (z (H, W) float32, background F32_FAR, -F32_FAR under
+    ``reverse_z``; id (H, W) int32, -1 background; attrs (H, W, 8) float32,
+    perspective-divided, 0 on the background). CUDA tensors launch kernel
+    B1, CPU tensors run ``rasterize_plain``."""
     device = packed.vis.device
     _check(packed.vis, packed.coef, work)
     if device.type == "cpu":
-        return rasterize_plain(packed, work, width, height, tile)
-    if device.type != "cuda":
-        raise ValueError(f"no rasterizer for device {device}")
+        return rasterize_plain(packed, work, width, height, tile, reverse_z,
+                               wire_px)
     vis, coef = packed
-    z = torch.empty((height, width), dtype=torch.float32, device=device)
-    ids = torch.empty((height, width), dtype=torch.int32, device=device)
+    z, ids, keys = _zid_outputs(width, height, device)
     attrs = torch.empty((height, width, NUM_ATTRS), dtype=torch.float32,
                         device=device)
-    keys = torch.empty((height * width,), dtype=torch.int64, device=device)
     tiles_x, _ = _tiles(width, height, tile)
     _launch("vrt_raster", device, vis.data_ptr(), coef.data_ptr(),
             work.items.data_ptr(), work.items.shape[0], vis.shape[1], tiles_x,
-            tile, width, height, keys.data_ptr(), z.data_ptr(),
-            ids.data_ptr(), attrs.data_ptr())
+            tile, width, height, int(reverse_z), float(wire_px),
+            keys.data_ptr(), z.data_ptr(), ids.data_ptr(), attrs.data_ptr())
     rasterize.launches += 1
     return z, ids, attrs
 
 
 rasterize.launches = 0
+
+
+def rasterize_zid(packed: PackedTris, work: WorkList, width: int,
+                  height: int, tile: int = TILE, reverse_z: bool = False):
+    """Two-phase phase 1: (z, id) exactly as ``rasterize`` returns them,
+    without the attributes. CUDA tensors launch kernel B3a, CPU tensors run
+    ``rasterize_zid_plain``."""
+    device = packed.vis.device
+    _check(packed.vis, packed.coef, work)
+    if device.type == "cpu":
+        return rasterize_zid_plain(packed, work, width, height, tile,
+                                   reverse_z)
+    z, ids, keys = _zid_outputs(width, height, device)
+    tiles_x, _ = _tiles(width, height, tile)
+    _launch("vrt_raster_zid", device, packed.vis.data_ptr(),
+            work.items.data_ptr(), work.items.shape[0], packed.vis.shape[1],
+            tiles_x, tile, width, height, int(reverse_z), keys.data_ptr(),
+            z.data_ptr(), ids.data_ptr())
+    rasterize_zid.launches += 1
+    return z, ids
+
+
+rasterize_zid.launches = 0
+
+
+def _cell_grid(tile: int, sub_h: int, win_w: int):
+    """(rows, columns) of sub_h x win_w cells in a supertile."""
+    if tile % sub_h or tile % win_w:
+        raise ValueError(f"cells of {sub_h}x{win_w} px do not tile a "
+                         f"{tile}-px supertile")
+    return tile // sub_h, tile // win_w
+
+
+def filter_work_to_winners(work: WorkList, ids: torch.Tensor,
+                           tris_per_inst: int, width: int, height: int,
+                           tile: int = TILE, sub_h: int = 16,
+                           win_w: int = 128):
+    """Two-phase: which (work item, cell) pairs may own a phase-1 winner.
+
+    Cells are the sub_h x win_w pixel blocks of each supertile, row-major
+    (cell c at block row c // (tile // win_w)). Per cell, the winners'
+    instances ``id // T`` span [min, max]; a pair is live iff the item's
+    instance lies in that range, the JAX package's conservative rule
+    (``raster_pallas.filter_work_to_winners``): every winner's own item
+    stays live. ``ids`` is the cropped (H, W) id image, -1 background; the
+    padding to supertile multiples is background, so a cell wholly outside
+    the frame is never live. Returns the work list with items that have no
+    live cell marked unused (-1, -1), ``num_items`` unchanged, and the
+    (max_work, n_cell) bool live mask. No host synchronisation."""
+    n_sub, n_win = _cell_grid(tile, sub_h, win_w)
+    tiles_x, n_st = _tiles(width, height, tile)
+    pad = torch.full((n_st // tiles_x * tile, tiles_x * tile), -1,
+                     dtype=ids.dtype, device=ids.device)
+    pad[:height, :width] = ids
+    bg = pad < 0
+    inst = torch.div(pad, tris_per_inst, rounding_mode="floor")
+    blocks = (pad.shape[0] // sub_h, sub_h, pad.shape[1] // win_w, win_w)
+    mn = torch.where(bg, 2 ** 30, inst).reshape(blocks).amin(dim=(1, 3))
+    mx = torch.where(bg, -1, inst).reshape(blocks).amax(dim=(1, 3))
+
+    item_inst = work.items[:, 0:1].long()
+    st = work.items[:, 1:2].long().clamp(min=0)
+    c = torch.arange(n_sub * n_win, device=ids.device)[None, :]
+    rows = (st // tiles_x) * n_sub + c // n_win
+    cols = (st % tiles_x) * n_win + c % n_win
+    live = ((mn[rows, cols] <= item_inst) & (item_inst <= mx[rows, cols])
+            & (item_inst >= 0))
+    items = torch.where(live.any(dim=1, keepdim=True), work.items,
+                        torch.full_like(work.items, -1))
+    return WorkList(items=items, num_items=work.num_items), live
+
+
+def rasterize_resolve(packed: PackedTris, work: WorkList, live: torch.Tensor,
+                      ids: torch.Tensor, width: int, height: int,
+                      tile: int = TILE, sub_h: int = 16, win_w: int = 128
+                      ) -> torch.Tensor:
+    """Two-phase phase 2: attrs (H, W, 8) of the winners ``ids`` (from
+    ``rasterize_zid``) over the live (item, cell) pairs of
+    ``filter_work_to_winners``, 0 on the background. CUDA tensors launch
+    kernel B3b, CPU tensors run ``rasterize_resolve_plain``."""
+    device = packed.vis.device
+    _check(packed.vis, packed.coef, work)
+    n_sub, n_win = _cell_grid(tile, sub_h, win_w)
+    for x, shape, dtype in ((live, (work.items.shape[0], n_sub * n_win),
+                             torch.bool),
+                            (ids, (height, width), torch.int32)):
+        if (x.device != device or tuple(x.shape) != shape
+                or x.dtype != dtype or not x.is_contiguous()):
+            raise ValueError(f"resolve input {tuple(x.shape)} {x.dtype} on "
+                             f"{x.device}, expected contiguous {shape} "
+                             f"{dtype} on {device}")
+    if device.type == "cpu":
+        return rasterize_resolve_plain(packed, work, live, ids, width, height,
+                                       tile, sub_h, win_w)
+    attrs = torch.empty((height, width, NUM_ATTRS), dtype=torch.float32,
+                        device=device)
+    tiles_x, _ = _tiles(width, height, tile)
+    _launch("vrt_raster_resolve", device, packed.coef.data_ptr(),
+            work.items.data_ptr(), live.data_ptr(), work.items.shape[0],
+            n_sub * n_win, packed.vis.shape[1], tiles_x, tile, sub_h, win_w,
+            width, height, ids.data_ptr(), attrs.data_ptr())
+    rasterize_resolve.launches += 1
+    return attrs
+
+
+rasterize_resolve.launches = 0
+
+
+def rasterize_two_phase(packed: PackedTris, work: WorkList, width: int,
+                        height: int, tile: int = TILE, sub_h: int = 16,
+                        win_w: int = 128, reverse_z: bool = False):
+    """Two-phase rasterization (``raster_pallas.rasterize_pallas_two_phase``):
+    B3a, the winner filter, then B3b. Returns (z, id, attrs), bit-identical
+    to ``rasterize(..., reverse_z=reverse_z)``."""
+    z, ids = rasterize_zid(packed, work, width, height, tile, reverse_z)
+    work2, live = filter_work_to_winners(work, ids, packed.vis.shape[1],
+                                         width, height, tile, sub_h, win_w)
+    attrs = rasterize_resolve(packed, work2, live, ids, width, height, tile,
+                              sub_h, win_w)
+    return z, ids, attrs
 
 
 def rasterize_depth(vis: torch.Tensor, work: WorkList, width: int,
@@ -267,8 +401,6 @@ def rasterize_depth(vis: torch.Tensor, work: WorkList, width: int,
     _check(vis, None, work)
     if device.type == "cpu":
         return rasterize_depth_plain(vis, work, width, height, tile)
-    if device.type != "cuda":
-        raise ValueError(f"no rasterizer for device {device}")
     z = torch.empty((height, width), dtype=torch.float32, device=device)
     tiles_x, _ = _tiles(width, height, tile)
     _launch("vrt_raster_depth", device, vis.data_ptr(), work.items.data_ptr(),
@@ -281,12 +413,24 @@ def rasterize_depth(vis: torch.Tensor, work: WorkList, width: int,
 rasterize_depth.launches = 0
 
 
-def _covered_pairs(vis: torch.Tensor, work: WorkList, width: int,
-                   height: int, tile: int, chunk: int):
-    """The kernels' coverage, expanded in plain PyTorch: yields, ``chunk``
-    (triangle, pixel) pairs at a time, the covered pairs' (pixel index, z
-    with -0.0 made +0.0, global id)."""
-    dev = vis.device
+class PairRects(NamedTuple):
+    """The visibility pass's (triangle, pixel) pairs, one pixel rectangle
+    (bbox ∩ supertile) per (work item, triangle) whose bbox meets the
+    item's supertile: top-left (x0, y0), width ``wd``, pixel count
+    ``cnt``, global id ``gid`` and the 12 plane coefficients ``planes``."""
+
+    x0: torch.Tensor
+    y0: torch.Tensor
+    wd: torch.Tensor
+    cnt: torch.Tensor
+    gid: torch.Tensor
+    planes: torch.Tensor
+
+
+def pair_rects(vis: torch.Tensor, work: WorkList, width: int, height: int,
+               tile: int = TILE) -> PairRects:
+    """The (triangle, pixel) pairs the visibility pass evaluates for
+    ``work``; ``cnt.sum()`` is the data-dependent work count."""
     T = vis.shape[1]
     tiles_x, _ = _tiles(width, height, tile)
     items = work.items[work.items[:, 0] >= 0].long()
@@ -295,9 +439,6 @@ def _covered_pairs(vis: torch.Tensor, work: WorkList, width: int,
     ty0 = ((st // tiles_x) * tile).to(torch.float32)[:, None]
     tx1 = torch.clamp(tx0 + tile, max=width) - 1
     ty1 = torch.clamp(ty0 + tile, max=height) - 1
-
-    # (item, triangle) pairs whose bbox meets the item's supertile, and the
-    # pixel rectangle bbox ∩ tile of each
     bb = vis[inst, :, 12:16]                                   # (W, T, 4)
     hit = ((bb[..., 0] <= tx1) & (bb[..., 2] >= tx0)
            & (bb[..., 1] <= ty1) & (bb[..., 3] >= ty0))
@@ -307,11 +448,18 @@ def _covered_pairs(vis: torch.Tensor, work: WorkList, width: int,
     y0 = torch.maximum(torch.ceil(rect[:, 1]), ty0[w_i, 0]).long()
     wd = torch.minimum(torch.floor(rect[:, 2]), tx1[w_i, 0]).long() - x0 + 1
     ht = torch.minimum(torch.floor(rect[:, 3]), ty1[w_i, 0]).long() - y0 + 1
-    cnt = wd * ht
-    start = torch.cumsum(cnt, 0) - cnt
-    gid = inst[w_i] * T + t_i
-    pc = vis[inst[w_i], t_i, :12]                              # (n, 12)
+    return PairRects(x0=x0, y0=y0, wd=wd, cnt=wd * ht,
+                     gid=inst[w_i] * T + t_i, planes=vis[inst[w_i], t_i, :12])
 
+
+def _covered_pairs(vis: torch.Tensor, work: WorkList, width: int,
+                   height: int, tile: int, chunk: int, wire_px: float = 0.0):
+    """The kernels' coverage, expanded in plain PyTorch: yields, ``chunk``
+    (triangle, pixel) pairs at a time, the covered pairs' (pixel index, z
+    with -0.0 made +0.0, global id)."""
+    dev = vis.device
+    x0, y0, wd, cnt, gid, pc = pair_rects(vis, work, width, height, tile)
+    start = torch.cumsum(cnt, 0) - cnt
     total = int(cnt.sum())
     for lo in range(0, total, chunk):
         p0, p1 = torch.searchsorted(
@@ -333,48 +481,53 @@ def _covered_pairs(vis: torch.Tensor, work: WorkList, width: int,
         def plane(j):
             return cf[:, j] * px + cf[:, j + 1] * py + cf[:, j + 2]
 
-        zq = plane(9)
-        cover = ((plane(0) >= 0.0) & (plane(3) >= 0.0) & (plane(6) >= 0.0)
+        e0, e1, e2, zq = plane(0), plane(3), plane(6), plane(9)
+        cover = ((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0)
                  & (zq >= 0.0) & (zq <= 1.01))
+        if wire_px > 0.0:
+            cover &= torch.minimum(e0, torch.minimum(e1, e2)) <= wire_px
         # +0.0 canonicalises -0.0, whose bits would sort above every z
         yield (y * width + x)[cover], zq[cover] + 0.0, gid[r][cover]
 
 
-def rasterize_plain(packed: PackedTris, work: WorkList, width: int,
-                    height: int, tile: int = TILE, chunk: int = 1 << 21):
-    """Plain PyTorch version of kernel B1: same inputs, outputs and key
-    semantics. ``chunk`` bounds the (triangle, pixel) pairs evaluated at
-    once."""
+def _merge_keys_plain(vis, work, width, height, tile, reverse_z, wire_px,
+                      chunk):
+    """Per-pixel int64 keys ``(z_key << 32) | gid`` merged with ``amin``:
+    z_key is the z bits, or their 31-bit complement under reverse-z (the
+    kernel's ~bits, kept positive for the signed merge); untouched pixels
+    hold _KEY_EMPTY."""
     keys = torch.full((height * width,), _KEY_EMPTY, dtype=torch.int64,
-                      device=packed.vis.device)
-    for pix, zq, gid in _covered_pairs(packed.vis, work, width, height, tile,
-                                       chunk):
-        zbits = zq.view(torch.int32).to(torch.int64)
-        keys.scatter_reduce_(0, pix, (zbits << 32) | gid, "amin")
-    return _resolve_plain(keys, packed.coef, width, height)
+                      device=vis.device)
+    for pix, zq, gid in _covered_pairs(vis, work, width, height, tile, chunk,
+                                       wire_px):
+        zkey = zq.view(torch.int32).to(torch.int64)
+        if reverse_z:
+            zkey = zkey ^ 0x7FFFFFFF
+        keys.scatter_reduce_(0, pix, (zkey << 32) | gid, "amin")
+    return keys
 
 
-def rasterize_depth_plain(vis: torch.Tensor, work: WorkList, width: int,
-                          height: int, tile: int = TILE,
-                          chunk: int = 1 << 21) -> torch.Tensor:
-    """Plain PyTorch version of kernel B2: the pairs of ``rasterize_plain``
-    merged with a float ``amin`` (order-free, so exact on every device)."""
-    z = torch.full((height * width,), F32_FAR, dtype=torch.float32,
-                   device=vis.device)
-    for pix, zq, _ in _covered_pairs(vis, work, width, height, tile, chunk):
-        z.scatter_reduce_(0, pix, zq, "amin")
-    return z.reshape(height, width)
-
-
-def _resolve_plain(keys: torch.Tensor, coef: torch.Tensor, width: int,
-                   height: int):
-    """Decode the per-pixel keys and evaluate the winners' planes."""
-    dev = keys.device
+def _decode_plain(keys: torch.Tensor, width: int, height: int,
+                  reverse_z: bool):
+    """Keys -> (z (H, W), id (H, W)), with the background convention."""
     bg = keys == _KEY_EMPTY
-    gid = torch.where(bg, torch.zeros_like(keys), keys & 0xFFFFFFFF)
-    zb = (keys >> 32).to(torch.int32).view(torch.float32)
-    z = torch.where(bg, torch.full_like(zb, F32_FAR), zb)
-    ids = torch.where(bg, torch.full_like(gid, -1), gid).to(torch.int32)
+    zkey = keys >> 32
+    if reverse_z:
+        zkey = zkey ^ 0x7FFFFFFF
+    zb = zkey.to(torch.int32).view(torch.float32)
+    z = torch.where(bg, torch.full_like(zb, -F32_FAR if reverse_z
+                                        else F32_FAR), zb)
+    ids = torch.where(bg, torch.full_like(keys, -1), keys & 0xFFFFFFFF)
+    return (z.reshape(height, width),
+            ids.to(torch.int32).reshape(height, width))
+
+
+def _attrs_plain(coef: torch.Tensor, ids: torch.Tensor, write: torch.Tensor):
+    """The winners' perspective-divided attributes (H, W, 8) where
+    ``write`` is set, 0 elsewhere."""
+    height, width = ids.shape
+    dev = ids.device
+    gid = torch.where(write, ids, torch.zeros_like(ids)).reshape(-1).long()
     p = torch.arange(height * width, device=dev)
     px = (p % width).to(torch.float32) + 0.5
     py = (p // width).to(torch.float32) + 0.5
@@ -388,6 +541,69 @@ def _resolve_plain(keys: torch.Tensor, coef: torch.Tensor, width: int,
                         torch.ones_like(inv_w))
     attrs = torch.stack([plane(3 * (k + 1)) / denom
                          for k in range(NUM_ATTRS)], dim=-1)
-    attrs = torch.where(bg[:, None], torch.zeros_like(attrs), attrs)
-    return (z.reshape(height, width), ids.reshape(height, width),
-            attrs.reshape(height, width, NUM_ATTRS))
+    attrs = torch.where(write.reshape(-1, 1), attrs, torch.zeros_like(attrs))
+    return attrs.reshape(height, width, NUM_ATTRS)
+
+
+def rasterize_plain(packed: PackedTris, work: WorkList, width: int,
+                    height: int, tile: int = TILE, reverse_z: bool = False,
+                    wire_px: float = 0.0, chunk: int = 1 << 21):
+    """Plain PyTorch version of kernel B1: same inputs, outputs and key
+    semantics. ``chunk`` bounds the (triangle, pixel) pairs evaluated at
+    once."""
+    keys = _merge_keys_plain(packed.vis, work, width, height, tile,
+                             reverse_z, wire_px, chunk)
+    z, ids = _decode_plain(keys, width, height, reverse_z)
+    return z, ids, _attrs_plain(packed.coef, ids, ids >= 0)
+
+
+def rasterize_zid_plain(packed: PackedTris, work: WorkList, width: int,
+                        height: int, tile: int = TILE,
+                        reverse_z: bool = False, chunk: int = 1 << 21):
+    """Plain PyTorch version of kernel B3a: ``rasterize_plain``'s z and
+    id."""
+    keys = _merge_keys_plain(packed.vis, work, width, height, tile,
+                             reverse_z, 0.0, chunk)
+    return _decode_plain(keys, width, height, reverse_z)
+
+
+def rasterize_resolve_plain(packed: PackedTris, work: WorkList,
+                            live: torch.Tensor, ids: torch.Tensor,
+                            width: int, height: int, tile: int = TILE,
+                            sub_h: int = 16, win_w: int = 128
+                            ) -> torch.Tensor:
+    """Plain PyTorch version of kernel B3b: a covered pixel gets its
+    winner's attributes iff the work item (winner's instance, pixel's
+    supertile) is in ``work`` and live at the pixel's cell, else 0."""
+    dev = ids.device
+    I, T = packed.coef.shape[0], packed.coef.shape[1]
+    n_sub, n_win = _cell_grid(tile, sub_h, win_w)
+    tiles_x, n_st = _tiles(width, height, tile)
+    # slot of each (instance, supertile) item; unused slots scatter to a
+    # spare entry that nothing reads
+    inst_w, st_w = work.items[:, 0].long(), work.items[:, 1].long()
+    used = inst_w >= 0
+    slot_of = torch.full((I * n_st + 1,), -1, dtype=torch.long, device=dev)
+    slot_of.scatter_(0, torch.where(used, inst_w * n_st + st_w, I * n_st),
+                     torch.arange(work.items.shape[0], device=dev))
+    y = torch.arange(height, device=dev)[:, None]
+    x = torch.arange(width, device=dev)[None, :]
+    st = (y // tile) * tiles_x + x // tile
+    cell = ((y % tile) // sub_h) * n_win + (x % tile) // win_w
+    covered = ids >= 0
+    inst = torch.where(covered, ids.long() // T, torch.zeros_like(st))
+    slot = slot_of[inst * n_st + st]
+    write = covered & (slot >= 0) & live[slot.clamp(min=0), cell]
+    return _attrs_plain(packed.coef, ids, write)
+
+
+def rasterize_depth_plain(vis: torch.Tensor, work: WorkList, width: int,
+                          height: int, tile: int = TILE,
+                          chunk: int = 1 << 21) -> torch.Tensor:
+    """Plain PyTorch version of kernel B2: the pairs of ``rasterize_plain``
+    merged with a float ``amin`` (order-free, so exact on every device)."""
+    z = torch.full((height * width,), F32_FAR, dtype=torch.float32,
+                   device=vis.device)
+    for pix, zq, _ in _covered_pairs(vis, work, width, height, tile, chunk):
+        z.scatter_reduce_(0, pix, zq, "amin")
+    return z.reshape(height, width)

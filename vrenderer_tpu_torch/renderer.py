@@ -4,10 +4,13 @@ Renderer.cpp:321-446).
 
 One frame runs, in order: view constants, scene refresh (scene blocks to
 world space), the shadow phase, LOD selection, the vertex stage, triangle
-setup, binning, the rasterizer (``ops/raster_cuda.rasterize``: the CUDA
-kernel for tensors on the card, its plain version on the CPU), deferred
-lighting, tonemap, sky after tonemap, and sRGB encode. Every tensor lives
-on ``Renderer.device``.
+setup, binning, the rasterizer (``ops/raster_cuda.rasterize``, or
+``rasterize_two_phase`` under ``RasterSettings.two_phase`` without
+wireframe; ``reverse_z`` and ``wireframe`` select its depth test and fill
+mode), deferred lighting, tonemap, sky after tonemap, and sRGB encode.
+Every tensor lives on ``Renderer.device``: the CUDA device unless the
+caller passes another, where the rasterizers launch their CUDA kernels; on
+the CPU they run their plain versions.
 
 The shadow phase has two modes (``FrameConfig.shadow_mode``):
 
@@ -21,8 +24,8 @@ The shadow phase has two modes (``FrameConfig.shadow_mode``):
   from the main eye at full LOD, the main pass reuses its selection and
   geometry, masked to the main frustum's nodes.
 
-Eye adaptation, lock-view, the sharded band path, two-phase rasterization
-and pipeline reload raise NotImplementedError; ROADMAP.md queues them.
+Eye adaptation, lock-view, the sharded band path and pipeline reload
+raise NotImplementedError; ROADMAP.md queues them.
 """
 
 from __future__ import annotations
@@ -119,7 +122,8 @@ class _ShadowInputs(NamedTuple):
 
 
 class Renderer:
-    """Owns the static config and assets on ``device``.
+    """Owns the static config and assets on ``device`` (default: the CUDA
+    device; a RuntimeError without one, so pass ``device="cpu"`` there).
 
     max_active: render budget, the number of selected instances that feed
     the vertex/setup/raster pipeline (selection runs at max_instances;
@@ -131,12 +135,12 @@ class Renderer:
                  max_active: Optional[int] = None, device=None):
         if config.shadow_mode not in ("horizon", "map"):
             raise ValueError(f"unknown shadow_mode {config.shadow_mode!r}")
-        rs = config.raster
-        if rs.two_phase or rs.reverse_z or rs.wireframe:
-            raise NotImplementedError(
-                f"two_phase/reverse_z/wireframe: {_NOT_PORTED}")
         if device is None:
-            device = heightmap.device if heightmap is not None else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Renderer renders on the CUDA device by default and none "
+                    "is available; pass device=\"cpu\" to render on the CPU")
+            device = "cuda"
         self.device = torch.device(device)
         self.config = config
         if heightmap is None:
@@ -355,9 +359,17 @@ class Renderer:
     def _terrain_pass(self, vc, params, sh: _ShadowInputs):
         """Raster products (z, prim_id, attrs, instances, work items)."""
         cfg = self.config
+        rs = cfg.raster
         packed, work, instances = self._raster_inputs(vc, params, sh)
-        z, prim_id, attrs = raster_cuda.rasterize(
-            packed, work, cfg.width, cfg.height, tile=cfg.raster.tile_w)
+        if rs.two_phase and not rs.wireframe:
+            z, prim_id, attrs = raster_cuda.rasterize_two_phase(
+                packed, work, cfg.width, cfg.height, tile=rs.tile_w,
+                sub_h=rs.subtile_h, win_w=rs.win_w, reverse_z=rs.reverse_z)
+        else:
+            z, prim_id, attrs = raster_cuda.rasterize(
+                packed, work, cfg.width, cfg.height, tile=rs.tile_w,
+                reverse_z=rs.reverse_z,
+                wire_px=1.0 if rs.wireframe else 0.0)
         return z, prim_id, attrs, instances, work.num_items
 
     def _view_rays(self, vc: Dict[str, torch.Tensor]) -> torch.Tensor:
