@@ -8,14 +8,21 @@ Phases, each printing one line and raising on failure:
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; TF32 is switched off for matmuls and cuDNN, since the JAX
    package runs its matrix products in full float32 (Precision.HIGHEST);
-2. build: nvcc compiles ``vrenderer_tpu_torch/csrc`` (seconds printed);
+2. build: nvcc compiles ``vrenderer_tpu_torch/csrc`` (seconds printed,
+   ptxas' registers and spills), and the shared-memory atomics each region
+   kernel compiled to (cuobjdump's SASS: native ``ATOMS.MIN`` or a
+   compare-and-swap loop);
 3. kernel vs plain: the CUDA rasterizer B1 against its plain PyTorch
    version on the card at the 1080p horizon path's inputs (flythrough
    cameras 0 and 13, 13 being the heavy grazing view): ids and z equal,
    attrs within 1e-5, both timed with CUDA events, beside the bound (the
-   least time the card could take for the input's bytes and operations);
-   then B1 under reverse-z and in wireframe, and kernel B3a under
-   reverse-z, against their plain versions at the same inputs;
+   least time the card could take for the input's bytes and operations),
+   the (triangle, pixel) pairs covered, evaluated by the kernel's block
+   test (``raster_cuda.block_pair_rects``, its PyTorch mirror) and in the
+   triangles' bboxes, and the kernel's time in each layout of LAYOUTS
+   (region side, blocks a cluster; equal output checked too); then B1 under
+   reverse-z and in wireframe, and kernel B3a under reverse-z, against
+   their plain versions at the same inputs;
 4. two-phase kernels: B3a (z + id) against its plain version and B1's z
    and id, the winner filter's live (item, cell) pairs, B3b (the winners'
    attrs) against its plain version and B1's attrs, all bitwise; CUDA-event
@@ -32,7 +39,8 @@ Phases, each printing one line and raising on failure:
    wireframe, finite, covered in (0, 1), without overflow;
 8. depth kernel vs plain: kernel B2 against its plain version and against
    kernel B1's z at the map cell's light-pass inputs (2048x2048, cameras 0
-   and 13): z bitwise equal to both, both timed with CUDA events; then
+   and 13): z bitwise equal to both, both timed with CUDA events, with the
+   pair counts and layouts of phase 3; then
    kernel B1 against its plain version at the map path's main-raster
    inputs (768 + 1 instance slots in the light selection's order, the
    membership mask leaving shared slots invalid), as in phase 3;
@@ -54,7 +62,10 @@ Each path's kernel launches are counted from 0 just before it runs. Then
 one JSON line with each kernel's launches (on its path: B1 and B2 on the
 map path, B3a and B3b on the two-phase path), and its error, times and
 bound at camera 13, with each camera's under ``cameras`` (B1's at the
-map path's inputs, B3a's and B3b's at the horizon path's); the bound's
+map path's inputs, B3a's and B3b's at the horizon path's), and for B1, B2
+and B3a the pairs their block test evaluates (``evaluated_pairs``) beside
+the covered and bbox pairs, and for B1 and B2 the time of each layout
+(``layout_ms``); the bound's
 operations count the (triangle, pixel) pairs the triangles cover; then
 the nvidia-smi line, and as the last line ``{"ok": true, "device":
 {...}}``. Without a CUDA device it raises and prints no result.
@@ -63,9 +74,11 @@ the nvidia-smi line, and as the last line ``{"ok": true, "device":
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -79,6 +92,10 @@ MAX_ACTIVE, MAX_WORK = 512, 2048    # bench.py's horizon-mode budgets
 MAP_MAX_ACTIVE = 768                # bench.py's map-mode render budget
 SHADOW_RES = 2048                   # bench.py's light-map resolution
 KERNEL_CAMERAS = (0, 13)
+# (region side, blocks a cluster) of the region kernels timed in phases 3
+# and 8
+LAYOUTS = ((64, 1), (64, 2), (64, 4), (64, 8), (64, 16), (128, 1),
+           (128, 4))
 JSON_CAMERA = 13                    # the heavy grazing view
 CACHED_CAMERAS = 8
 MODE_CAMERAS = (0, 13, 32)          # frames of the reverse-z and wire modes
@@ -131,23 +148,75 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 
 def raster_work(vis, work, width: int, height: int, tile: int):
     """This input's data-dependent raster work: (bytes of the work list and
-    of the visibility rows of its instances, (triangle, pixel) pairs the
-    triangles cover, pairs the visibility pass evaluates). A covered pair
-    needs its 3 edge planes and its depth plane; the bbox pairs that the
-    kernel's walk evaluates and rejects are its design's cost, not the
-    function's, so the bound counts covered pairs only."""
+    of the visibility rows of its instances, {covered_pairs: (triangle,
+    pixel) pairs the triangles cover, evaluated_pairs: pairs the kernels'
+    block test leaves to the exact test, bbox_pairs: pairs in the
+    triangles' bboxes}). A covered pair needs its 3 edge planes and its
+    depth plane; the pairs that the kernel evaluates and rejects are its
+    design's cost, not the function's, so the bound counts covered pairs
+    only."""
     import torch
 
     from vrenderer_tpu_torch.ops import raster_cuda
 
     n_inst = int(torch.unique(work.items[work.items[:, 0] >= 0, 0]).numel())
-    evaluated = int(raster_cuda.pair_rects(vis, work, width, height,
-                                           tile).cnt.sum())
-    covered = sum(int(pix.numel()) for pix, _, _ in
-                  raster_cuda._covered_pairs(vis, work, width, height, tile,
-                                             1 << 21))
-    return (work.items.numel() * 4 + n_inst * vis.shape[1] * VIS_BYTES,
-            covered, evaluated)
+    pairs = {
+        "covered_pairs": sum(int(pix.numel()) for pix, _, _ in
+                             raster_cuda._covered_pairs(
+                                 vis, work, width, height, tile, 1 << 21)),
+        "evaluated_pairs": int(raster_cuda.block_pair_rects(
+            vis, work, width, height, tile).cnt.sum()),
+        "bbox_pairs": int(raster_cuda.pair_rects(vis, work, width, height,
+                                                 tile).cnt.sum()),
+    }
+    # the most evaluated pairs one 64-px region holds: what its cluster
+    # of blocks alone must evaluate
+    rects = raster_cuda.block_pair_rects(vis, work, width, height, tile, 64)
+    region = rects.y0 // 64 * -(-width // 64) + rects.x0 // 64
+    pairs["busiest_region_pairs"] = int(torch.bincount(
+        region, weights=rects.cnt.double()).max()) if region.numel() else 0
+    return work.items.numel() * 4 + n_inst * vis.shape[1] * VIS_BYTES, pairs
+
+
+def pairs_text(pairs: dict) -> str:
+    return (f"(triangle, pixel) pairs covered {pairs['covered_pairs']}, "
+            f"evaluated {pairs['evaluated_pairs']} after the block test "
+            f"({pairs['busiest_region_pairs']} in the busiest 64-px region), "
+            f"{pairs['bbox_pairs']} in bboxes")
+
+
+def layout_times(fn, check) -> dict:
+    """CUDA-event ms of ``fn(region=side, cluster=n)`` for each layout of
+    LAYOUTS, after ``check`` holds each layout's output to the reference."""
+    out = {}
+    for side, n in LAYOUTS:
+        key = f"{side}px x{n}"
+        check(fn(region=side, cluster=n), key)
+        out[key] = cuda_ms(lambda: fn(region=side, cluster=n), 20)
+    return out
+
+
+def sass_atomics(lib: Path) -> str:
+    """The shared-memory atomic instructions each region kernel compiled
+    to, from cuobjdump's SASS of the built library."""
+    from vrenderer_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return "cuobjdump not found"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    per_fn, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"region_kernelILi(\d)E", line)
+            name = (f"region_kernel<{('B1', 'B3a', 'B2')[int(m.group(1))]}>"
+                    if m else None)
+        elif name:
+            for op in re.findall(r"\bATOMS\.[A-Z0-9.]+", line):
+                per_fn.setdefault(name, Counter())[op] += 1
+    return "; ".join(f"{k}: " + ", ".join(f"{op} x{n}" for op, n in v.items())
+                     for k, v in sorted(per_fn.items()))
 
 
 def winner_bytes(ids) -> int:
@@ -214,23 +283,31 @@ def phase_kernel(name, r, params, prepass, cams) -> dict:
         err = float((out[2] - ref[2]).abs().max())
         if not err <= ATTR_TOL:
             raise RuntimeError(f"camera {i}: attrs differ by {err}")
+        def same(o, layout):
+            if not all(torch.equal(a, b) for a, b in zip(o, out)):
+                raise RuntimeError(f"camera {i}: B1 with layout {layout} "
+                                   f"differs")
+
+        layouts = layout_times(lambda **kw: raster_cuda.rasterize(
+            packed, work, *args, **kw), same)
         k_ms = cuda_ms(lambda: raster_cuda.rasterize(packed, work, *args), 20)
         p_ms = cuda_ms(
             lambda: raster_cuda.rasterize_plain(packed, work, *args), 3)
         n_px = int((out[1] >= 0).sum())
-        in_bytes, pairs, evaluated = raster_work(packed.vis, work, *args)
+        in_bytes, pairs = raster_work(packed.vis, work, *args)
         b = bound(in_bytes + winner_bytes(out[1])
                   + cfg.width * cfg.height * 40,
-                  pairs * PAIR_OPS + n_px * RESOLVE_OPS)
+                  pairs["covered_pairs"] * PAIR_OPS + n_px * RESOLVE_OPS)
         log(f"kernel ({name} path) camera {i}: ids/z equal, attrs max abs "
             f"err {err:.3g}, instance slots {packed.vis.shape[0]}, work "
             f"items {int(work.num_items)}, covered "
-            f"{n_px / (cfg.width * cfg.height):.4f}, (triangle, pixel) "
-            f"pairs covered {pairs} of {evaluated} evaluated, kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+            f"{n_px / (cfg.width * cfg.height):.4f}, {pairs_text(pairs)}; "
+            f"kernel {k_ms:.4f} ms (layouts "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in layouts.items())
+            + f"), plain {p_ms:.4f} ms, bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
         per_cam.append({"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                        **b})
+                        **b, **pairs, "layout_ms": layouts})
     return per_camera(per_cam)
 
 
@@ -458,23 +535,23 @@ def phase_two_phase_kernels(r, params, prepass, cams):
         used = int((work.items[:, 0] >= 0).sum())
         n_live = int(live.sum())
         n_px = int((ids >= 0).sum())
-        in_bytes, pairs, evaluated = raster_work(packed.vis, work, W, H,
-                                                 tile)
-        b_zid = bound(in_bytes + W * H * 8, pairs * PAIR_OPS)
+        in_bytes, pairs = raster_work(packed.vis, work, W, H, tile)
+        b_zid = bound(in_bytes + W * H * 8, pairs["covered_pairs"] * PAIR_OPS)
         b_res = bound(W * H * (4 + 32) + winner_bytes(ids) + live.numel()
                       + work2.items.numel() * 4, n_px * RESOLVE_OPS)
         log(f"two-phase kernels camera {i}: B3a z/id equal to plain and "
             f"B1, B3b attrs equal to plain and B1, two-phase equal to B1; "
             f"live (item, cell) pairs {n_live} of {used * live.shape[1]} "
             f"({n_live / max(used * live.shape[1], 1):.4f}), live items "
-            f"{int((work2.items[:, 0] >= 0).sum())} of {used}; (triangle, "
-            f"pixel) pairs covered {pairs} of {evaluated} evaluated; "
+            f"{int((work2.items[:, 0] >= 0).sum())} of {used}; "
+            f"{pairs_text(pairs)}; "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
             + f"; bound B3a {b_zid['bound_ms']:.4f} ms "
             f"({b_zid['bound_by']}), B3b {b_res['bound_ms']:.4f} ms "
             f"({b_res['bound_by']})")
         zid_cam.append({"max_abs_err": float((z - zp).abs().max()),
-                        "ms": t["b3a"], "plain_ms": t["b3a_plain"], **b_zid})
+                        "ms": t["b3a"], "plain_ms": t["b3a_plain"], **b_zid,
+                        **pairs})
         res_cam.append({"max_abs_err": float((attrs - ap).abs().max()),
                         "ms": t["b3b"], "plain_ms": t["b3b_plain"], **b_res})
     return per_camera(zid_cam), per_camera(res_cam)
@@ -556,21 +633,30 @@ def phase_depth_kernel(r, params, cams) -> dict:
         if not bool(torch.all((z < 2.0) | (z == raster_cuda.F32_FAR))):
             raise RuntimeError(f"camera {i}: background is not F32_FAR")
         err = float((z - ref).abs().max())
+
+        def same(o, layout):
+            if not torch.equal(o, z):
+                raise RuntimeError(f"camera {i}: B2 with layout {layout} "
+                                   f"differs")
+
+        layouts = layout_times(lambda **kw: raster_cuda.rasterize_depth(
+            vis, work, *args, **kw), same)
         k_ms = cuda_ms(lambda: raster_cuda.rasterize_depth(vis, work, *args),
                        20)
         p_ms = cuda_ms(
             lambda: raster_cuda.rasterize_depth_plain(vis, work, *args), 3)
         covered = float((z < 2.0).float().mean())
-        in_bytes, pairs, evaluated = raster_work(vis, work, *args)
-        b = bound(in_bytes + res * res * 4, pairs * PAIR_OPS)
+        in_bytes, pairs = raster_work(vis, work, *args)
+        b = bound(in_bytes + res * res * 4, pairs["covered_pairs"] * PAIR_OPS)
         log(f"depth kernel camera {i}: z equal to plain and to B1, work "
             f"items {int(work.num_items)} (max_work {r.max_work}), covered "
-            f"{covered:.4f}, (triangle, pixel) pairs covered {pairs} of "
-            f"{evaluated} evaluated, kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+            f"{covered:.4f}, {pairs_text(pairs)}; kernel {k_ms:.4f} ms "
+            "(layouts "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in layouts.items())
+            + f"), plain {p_ms:.4f} ms, bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
         per_cam.append({"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                        **b})
+                        **b, **pairs, "layout_ms": layouts})
     return per_camera(per_cam)
 
 
@@ -727,9 +813,10 @@ def main() -> int:
     _build.load()
     ptxas = [ln.split("info    : ")[-1] for ln in
              (lib.parent / "nvcc.log").read_text().splitlines()
-             if "registers" in ln]
+             if "registers" in ln or "spill" in ln]
     log(f"build: {lib.relative_to(REPO)} in "
         f"{time.perf_counter() - t0:.1f} s; ptxas: {'; '.join(ptxas)}")
+    log(f"shared-memory atomics (SASS): {sass_atomics(lib)}")
 
     r, params, cams = bench_renderer(device)
     prepass = r.cached_horizon_prepass(params)

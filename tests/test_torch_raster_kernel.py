@@ -4,7 +4,11 @@ the inclusive bbox scissor, the wrappers' checks and launch counts, the
 depth-only raster's z equal to the full raster's with an F32_FAR (never
 NaN) background, reverse-z (farthest wins, ties to the lowest id, -F32_FAR
 background), the wireframe cover rule, and the two-phase raster equal to
-the single-phase one; and on the card, the CUDA kernels B1, B2, B3a and B3b
+the single-phase one; adversarial inputs for the kernels' region merge and
+block test (near-plane-sized bboxes, edges through block-corner pixel
+centres, many instances in one supertile, instance-major work lists with
+unused slots, ragged frames, regions without items) against a per-pixel
+numpy reference; and on the card, the CUDA kernels B1, B2, B3a and B3b
 equal to their plain versions on whole frames' raster and light-view
 inputs.
 
@@ -39,9 +43,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _packed(planes, bbox, valid, device):
+def _packed(planes, bbox, valid, device, num_instances=None):
     """PackedTris for hand-made triangles: planes (N, 12) = 3 edges + z,
-    attribute planes constant per triangle (attr k = 10 * n + k)."""
+    attribute planes constant per triangle (attr k = 10 * n + k); one
+    instance per triangle unless ``num_instances`` says otherwise."""
     n = planes.shape[0]
     coef = np.zeros((n, 9, 3), np.float32)
     coef[:, 0, 2] = 1.0                        # inv_w = 1
@@ -52,7 +57,7 @@ def _packed(planes, bbox, valid, device):
             np.concatenate([planes[:, 9:12][:, None], coef], 1)),
         bbox=torch.as_tensor(bbox), valid=torch.as_tensor(valid))
     setup = traster.TriSetup(*(x.to(device) for x in setup))
-    return raster_cuda.pack_setup(setup, n)
+    return raster_cuda.pack_setup(setup, num_instances or n)
 
 
 def _full_frame_triangle(z):
@@ -439,3 +444,204 @@ def test_two_phase_equals_single_phase_on_frame_inputs(device, eye, target):
                                                  wire_px=wire_px)
                 for a, b in zip(b1, pl):
                     assert torch.equal(a, b)
+
+
+def _adversarial(case):
+    """(planes (N, 12), bbox (N, 4), instances, items (n, 2), width,
+    height) of one adversarial input for the region kernels."""
+    big = np.float32(1e4)
+    full = [0, 0, W - 1, H - 1]
+    if case == "crossing":
+        # near-plane-sized: full-frame bboxes, huge edge coefficients, one
+        # covering the left half, one whose z leaves [0, 1.01] on a band
+        planes = np.array([
+            [-big, 0, big * 127.3, 0, big, big * 50, 0, 0, big * 90,
+             1e-4, 2e-4, 0.3],
+            [0, 0, 1, 0, 0, 1, 0, 0, 1, 0.01, 0, -1.0],
+            [1, 0, -60, 0, 1, -40, -1, -1, 160, 0, 0, 0.2]], np.float32)
+        bbox = np.array([full, full, [58, 38, 104, 84]], np.float32)
+        return planes, bbox, 3, _supertile_major(3), W, H
+    if case == "block_edges":
+        # edges through the pixel centres of 8x8 block boundaries (x = 7,
+        # x = 8, the diagonal x = y), a -0.0 edge, a tall 5-px-wide rect
+        planes = np.array([
+            [-1, 0, 7.5, 0, 0, 1, 0, 0, 1, 0, 0, 0.5],
+            [1, 0, -8.5, 0, 0, 1, 0, 0, 1, 0, 0, 0.6],
+            [1, -1, 0, -0.0, -0.0, -0.0, 0, 0, 1, 0, 0, 0.4],
+            [0, 0, 1, 0, 0, 1, -1, 0, 67.5, 0, 0, 0.45]], np.float32)
+        bbox = np.array([[0, 0, 40, 40], [0, 0, 40, 40], [16, 16, 63, 63],
+                         [63, 10, 67, 100]], np.float32)
+        return planes, bbox, 4, _supertile_major(4), W, H
+    if case == "many_instances":
+        # 40 instances in supertile 1, overlapping, some at equal depth
+        n = 40
+        rng = np.random.default_rng(3)
+        x0 = rng.integers(128, 230, n)
+        y0 = rng.integers(0, 100, n)
+        planes = np.tile(_full_frame_triangle(0.5), (n, 1))
+        planes[:, 11] = np.round(rng.uniform(0.1, 0.9, n), 1)
+        bbox = np.stack([x0, y0, x0 + rng.integers(5, 60, n),
+                         y0 + rng.integers(5, 60, n)], 1).astype(np.float32)
+        return planes, bbox, n, _supertile_major(n), W, H
+    if case == "instance_major":
+        # (instance, supertile) pairs instance-major, with unused slots
+        planes = np.stack([_full_frame_triangle(0.5),
+                           _full_frame_triangle(0.25),
+                           np.array([1, 0, -20, 0, 1, -20, -1, -1, 300, 0.001,
+                                     0, 0.1], np.float32)])
+        bbox = np.array([[0, 0, 200, 100], [30, 10, 200, 120],
+                         [19, 19, 260, 260]], np.float32)
+        items = []
+        for i in range(3):
+            for st in range(2):
+                items += [[i, st], [-1, -1], [-1, st]]
+        return planes, bbox, 3, np.array(items, np.int32), W, H
+    if case == "ragged":
+        w, h = 250, 120
+        planes = np.stack([
+            np.array([-1, 0, 240.5, 0, -1, 115.5, 0, 0, 1, 0, 0, 0.5],
+                     np.float32),
+            np.array([1, 0, -150, 0, 0, 1, 0, 0, 1, 0.001, 0, 0.2],
+                     np.float32)])
+        bbox = np.array([[0, 0, w - 1, h - 1], [140, 50, w - 1, h - 1]],
+                        np.float32)
+        items = np.array([[i, st] for st in range(2) for i in range(2)],
+                         np.int32)
+        return planes, bbox, 2, items, w, h
+    if case == "region_without_items":
+        # triangles over the whole frame, items only for supertile 0:
+        # supertile 1 stays background
+        planes = np.stack([_full_frame_triangle(0.5),
+                           _full_frame_triangle(0.3)])
+        bbox = np.array([full, full], np.float32)
+        return planes, bbox, 2, np.array([[0, 0], [1, 0], [-1, -1]],
+                                         np.int32), W, H
+    raise ValueError(case)
+
+
+ADVERSARIAL = ("crossing", "block_edges", "many_instances", "instance_major",
+               "ragged", "region_without_items")
+
+
+def _supertile_major(n_inst, width=W, height=H):
+    n_st = -(-width // 128) * -(-height // 128)
+    return np.array([[i, st] for st in range(n_st) for i in range(n_inst)],
+                    np.int32)
+
+
+def adversarial_inputs(case, device):
+    """(packed, work, width, height) of an adversarial case."""
+    planes, bbox, n_inst, items, w, h = _adversarial(case)
+    packed = _packed(planes, bbox, np.ones(len(planes), bool), device,
+                     n_inst)
+    work = raster_cuda.WorkList(
+        items=torch.as_tensor(items, device=device),
+        num_items=torch.tensor(len(items), device=device))
+    return packed, work, w, h
+
+
+def _per_pixel_reference(vis, items, width, height, reverse_z, wire_px=0.0,
+                         tile=128):
+    """z and id per pixel, evaluated pair by pair in numpy float32 (one
+    rounding per operation, like the kernels) over each item's bbox ∩
+    supertile."""
+    tiles_x = -(-width // tile)
+    T = vis.shape[1]
+    keys = np.full(width * height, np.iinfo(np.int64).max, np.int64)
+    for inst, st in items:
+        if inst < 0:
+            continue
+        tx0, ty0 = st % tiles_x * tile, st // tiles_x * tile
+        tx1, ty1 = min(tx0 + tile, width) - 1, min(ty0 + tile, height) - 1
+        for t in range(T):
+            c = vis[inst, t]
+            bx0, by0, bx1, by1 = c[12:16]
+            if not (bx0 <= tx1 and bx1 >= tx0 and by0 <= ty1
+                    and by1 >= ty0):
+                continue
+            ys, xs = np.mgrid[int(max(np.ceil(by0), ty0)):
+                              int(min(np.floor(by1), ty1)) + 1,
+                              int(max(np.ceil(bx0), tx0)):
+                              int(min(np.floor(bx1), tx1)) + 1]
+            px = xs.astype(np.float32) + np.float32(0.5)
+            py = ys.astype(np.float32) + np.float32(0.5)
+            e = [c[j] * px + c[j + 1] * py + c[j + 2] for j in (0, 3, 6, 9)]
+            zq = e[3]
+            cover = ((e[0] >= 0) & (e[1] >= 0) & (e[2] >= 0) & (zq >= 0)
+                     & (zq <= np.float32(1.01)))
+            if wire_px > 0:
+                cover &= np.minimum(e[0], np.minimum(e[1], e[2])) <= wire_px
+            zkey = (zq[cover] + np.float32(0.0)).view(np.int32).astype(
+                np.int64)
+            if reverse_z:
+                zkey ^= 0x7FFFFFFF
+            np.minimum.at(keys, ys[cover] * width + xs[cover],
+                          (zkey << 32) | (inst * T + t))
+    bg = keys == np.iinfo(np.int64).max
+    zkey = keys >> 32
+    if reverse_z:
+        zkey ^= 0x7FFFFFFF
+    far = -raster_cuda.F32_FAR if reverse_z else raster_cuda.F32_FAR
+    z = np.where(bg, far, zkey.astype(np.int32).view(np.float32))
+    ids = np.where(bg, -1, keys & 0xFFFFFFFF).astype(np.int32)
+    return z.reshape(height, width), ids.reshape(height, width)
+
+
+@pytest.mark.parametrize("case", ADVERSARIAL)
+def test_adversarial_inputs_match_per_pixel_reference(device, case):
+    """B1 (filled, reverse-z, wireframe), B3a and B2 on inputs aimed at the
+    region merge and the block test equal a pair-by-pair reference, at
+    both region sizes of the kernels and with 1 to 16 blocks sharing a
+    region."""
+    packed, work, w, h = adversarial_inputs(case, device)
+    vis = packed.vis.cpu().numpy()
+    items = work.items.cpu().numpy()
+    for region, cluster in ((64, 1), (64, 2), (64, 16), (128, 8)):
+        kw = {"region": region, "cluster": cluster}
+        for reverse_z, wire_px in ((False, 0.0), (True, 0.0), (False, 1.0)):
+            z_ref, id_ref = _per_pixel_reference(vis, items, w, h, reverse_z,
+                                                 wire_px)
+            z, ids, attrs = (x.cpu().numpy() for x in raster_cuda.rasterize(
+                packed, work, w, h, reverse_z=reverse_z, wire_px=wire_px,
+                **kw))
+            assert np.array_equal(ids, id_ref), (kw, reverse_z, wire_px)
+            assert np.array_equal(z, z_ref)
+            assert not np.signbit(z[ids >= 0]).any()
+            assert np.all(np.where(ids[..., None] >= 0,
+                                   attrs == 10.0 * ids[..., None]
+                                   + np.arange(8), attrs == 0.0))
+            if wire_px == 0.0:
+                z2, ids2 = raster_cuda.rasterize_zid(
+                    packed, work, w, h, reverse_z=reverse_z, **kw)
+                assert np.array_equal(ids2.cpu().numpy(), id_ref)
+                assert np.array_equal(z2.cpu().numpy(), z_ref)
+            if not (reverse_z or wire_px):
+                zd = raster_cuda.rasterize_depth(packed.vis, work, w, h, **kw)
+                assert np.array_equal(zd.cpu().numpy(), z_ref)
+                assert 0 < (id_ref >= 0).mean() < 1
+
+
+def test_region_side_and_tiles_the_kernels_cannot_hold(device):
+    """A region divides the supertile or is the whole supertile; a tile
+    whose region's keys would not fit in shared memory raises before any
+    launch, on every device."""
+    assert raster_cuda.region_side(128) == 64
+    assert raster_cuda.region_side(128, 128) == 128
+    assert raster_cuda.region_side(96) == 96
+    assert raster_cuda.region_side(32) == 32
+    assert raster_cuda.region_side(256) == 64
+    packed = _pair([_full_frame_triangle(0.5)], device)
+    work = raster_cuda.full_work_list(1, W, H, tile=200, device=device)
+    before = raster_cuda.rasterize.launches
+    for bad in ({"tile": 200}, {"tile": 128, "region": 0},
+                {"tile": 128, "cluster": 0}, {"tile": 128, "cluster": 17}):
+        with pytest.raises(ValueError):
+            raster_cuda.rasterize(packed, work, W, H, **bad)
+        with pytest.raises(ValueError):
+            raster_cuda.rasterize_zid(packed, work, W, H, **bad)
+    with pytest.raises(ValueError):
+        raster_cuda.rasterize_depth(packed.vis, work, W, H, tile=240)
+    assert raster_cuda.rasterize.launches == before
+    # B2's 4-byte keys fit a 200-px tile
+    z = raster_cuda.rasterize_depth(packed.vis, work, W, H, tile=200)
+    assert torch.all(z == 0.5)

@@ -89,12 +89,13 @@ def load() -> ctypes.CDLL:
     if _loaded is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.vrt_raster.argtypes = [p, p, p, i, i, i, i, i, i, i, f,
-                                   p, p, p, p, p]
-        lib.vrt_raster_zid.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p, p]
+        lib.vrt_raster.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, f,
+                                   p, p, p, p]
+        lib.vrt_raster_zid.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, p,
+                                       p]
         lib.vrt_raster_resolve.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
                                            i, p, p, p]
-        lib.vrt_raster_depth.argtypes = [p, p, i, i, i, i, i, i, p, p]
+        lib.vrt_raster_depth.argtypes = [p, p, i, i, i, i, i, i, i, i, p, p]
         for fn in (lib.vrt_raster, lib.vrt_raster_zid, lib.vrt_raster_resolve,
                    lib.vrt_raster_depth):
             fn.restype = i

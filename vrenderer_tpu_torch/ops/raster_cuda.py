@@ -12,7 +12,12 @@ edge.
 Each wrapper launches a hand-written kernel of ``csrc/raster.cu`` (built
 by ``_build``) for CUDA tensors, counting the launches on the wrapper, and
 runs its plain PyTorch version, the CPU path and the card's reference, for
-CPU tensors:
+CPU tensors. B1, B2 and B3a share one design: a cluster of ``cluster``
+blocks merges one ``region`` x ``region`` pixel square of a supertile in
+shared memory and evaluates a triangle's pixels only in the 8x8 blocks
+that an exact-margin test cannot rule out; ``block_pair_rects`` mirrors
+that test in PyTorch and counts the (triangle, pixel) pairs the kernels
+evaluate:
 
 * ``rasterize``: kernel B1 (``vrt_raster``), replacing the Pallas kernel
   ``raster_pallas._raster_kernel`` (full variant, via
@@ -41,7 +46,7 @@ supertile plus every overlapping (usable instance, supertile) pair, so
 ``FrameOutput.num_work_items`` agrees) and drops the same items on
 overflow: the first ``max_work`` in supertile-major, near-to-far order
 survive. Near-to-far order and item-level early-z are only speed-ups on
-the TPU; the kernel here needs neither.
+the TPU; the kernels here take the items in any order.
 """
 
 from __future__ import annotations
@@ -56,7 +61,16 @@ NUM_ATTRS = 8
 NUM_COEF = 3 * (1 + NUM_ATTRS)    # [inv_w, attr0..7] x (a, b, c)
 VIS_STRIDE = 16                   # 3 edges x 3, z plane x 3, bbox x 4
 TILE = 128
+REGION = 64        # side of the pixel square one kernel cluster merges
+CLUSTER = 2        # blocks of a cluster sharing one region's work (B1, B3a)
+DEPTH_CLUSTER = 16  # the same for B2, whose light views pile up in one spot
+CELL = 8           # side of the kernels' block-test blocks
+SMALL_PX = CELL * CELL   # bbox-in-region pixels one thread walks unsplit
 _KEY_EMPTY = torch.iinfo(torch.int64).max
+# the kernels' shared memory: region^2 keys and two lists of 1024 ints, of
+# the 227 KB a block may hold on the H100 (less the static part)
+_SMEM_BYTES = 232448 - 64
+_LISTS_BYTES = 2 * 1024 * 4
 
 
 class PackedTris(NamedTuple):
@@ -150,6 +164,25 @@ def _tiles(width: int, height: int, tile: int):
     return tiles_x, tiles_x * -(-height // tile)
 
 
+def region_side(tile: int, region: int = REGION, key_bytes: int = 8,
+                cluster: int = CLUSTER) -> int:
+    """The side of the pixel squares the kernels merge for ``tile``:
+    ``region`` where it divides the tile, else the whole tile. Raises for a
+    square whose keys (``key_bytes`` each) do not fit in a block's shared
+    memory, and for a cluster of other than 1-16 blocks (above 8 a
+    non-portable size, which the H100 allows)."""
+    if tile <= 0 or region <= 0:
+        raise ValueError(f"tile {tile} and region {region} must be positive")
+    if not 1 <= cluster <= 16:
+        raise ValueError(f"cluster {cluster} is not 1-16 blocks")
+    side = region if tile % region == 0 else tile
+    if side * side * key_bytes + _LISTS_BYTES > _SMEM_BYTES:
+        raise ValueError(f"a {side}x{side} px region of {key_bytes}-byte keys "
+                         f"does not fit in shared memory (tile {tile}, "
+                         f"region {region})")
+    return side
+
+
 def build_work_list(bbox: torch.Tensor, usable: torch.Tensor, width: int,
                     height: int, tile: int = TILE, max_work: int = 2048,
                     order_key: torch.Tensor | None = None) -> WorkList:
@@ -237,33 +270,35 @@ def _launch(entry: str, device: torch.device, *args) -> None:
 
 
 def _zid_outputs(width: int, height: int, device: torch.device):
-    """Empty z (H, W) float32, id (H, W) int32 and the key scratch."""
+    """Empty z (H, W) float32 and id (H, W) int32."""
     return (torch.empty((height, width), dtype=torch.float32, device=device),
-            torch.empty((height, width), dtype=torch.int32, device=device),
-            torch.empty((height * width,), dtype=torch.int64, device=device))
+            torch.empty((height, width), dtype=torch.int32, device=device))
 
 
 def rasterize(packed: PackedTris, work: WorkList, width: int, height: int,
               tile: int = TILE, reverse_z: bool = False,
-              wire_px: float = 0.0):
+              wire_px: float = 0.0, region: int = REGION,
+              cluster: int = CLUSTER):
     """Returns (z (H, W) float32, background F32_FAR, -F32_FAR under
     ``reverse_z``; id (H, W) int32, -1 background; attrs (H, W, 8) float32,
     perspective-divided, 0 on the background). CUDA tensors launch kernel
-    B1, CPU tensors run ``rasterize_plain``."""
+    B1, CPU tensors run ``rasterize_plain``. ``region`` (``region_side``)
+    and ``cluster`` shape only the kernel's blocks, never the result."""
     device = packed.vis.device
     _check(packed.vis, packed.coef, work)
+    side = region_side(tile, region, cluster=cluster)
     if device.type == "cpu":
         return rasterize_plain(packed, work, width, height, tile, reverse_z,
                                wire_px)
     vis, coef = packed
-    z, ids, keys = _zid_outputs(width, height, device)
+    z, ids = _zid_outputs(width, height, device)
     attrs = torch.empty((height, width, NUM_ATTRS), dtype=torch.float32,
                         device=device)
     tiles_x, _ = _tiles(width, height, tile)
     _launch("vrt_raster", device, vis.data_ptr(), coef.data_ptr(),
             work.items.data_ptr(), work.items.shape[0], vis.shape[1], tiles_x,
-            tile, width, height, int(reverse_z), float(wire_px),
-            keys.data_ptr(), z.data_ptr(), ids.data_ptr(), attrs.data_ptr())
+            tile, side, cluster, width, height, int(reverse_z),
+            float(wire_px), z.data_ptr(), ids.data_ptr(), attrs.data_ptr())
     rasterize.launches += 1
     return z, ids, attrs
 
@@ -272,20 +307,22 @@ rasterize.launches = 0
 
 
 def rasterize_zid(packed: PackedTris, work: WorkList, width: int,
-                  height: int, tile: int = TILE, reverse_z: bool = False):
+                  height: int, tile: int = TILE, reverse_z: bool = False,
+                  region: int = REGION, cluster: int = CLUSTER):
     """Two-phase phase 1: (z, id) exactly as ``rasterize`` returns them,
     without the attributes. CUDA tensors launch kernel B3a, CPU tensors run
     ``rasterize_zid_plain``."""
     device = packed.vis.device
     _check(packed.vis, packed.coef, work)
+    side = region_side(tile, region, cluster=cluster)
     if device.type == "cpu":
         return rasterize_zid_plain(packed, work, width, height, tile,
                                    reverse_z)
-    z, ids, keys = _zid_outputs(width, height, device)
+    z, ids = _zid_outputs(width, height, device)
     tiles_x, _ = _tiles(width, height, tile)
     _launch("vrt_raster_zid", device, packed.vis.data_ptr(),
             work.items.data_ptr(), work.items.shape[0], packed.vis.shape[1],
-            tiles_x, tile, width, height, int(reverse_z), keys.data_ptr(),
+            tiles_x, tile, side, cluster, width, height, int(reverse_z),
             z.data_ptr(), ids.data_ptr())
     rasterize_zid.launches += 1
     return z, ids
@@ -392,20 +429,22 @@ def rasterize_two_phase(packed: PackedTris, work: WorkList, width: int,
 
 
 def rasterize_depth(vis: torch.Tensor, work: WorkList, width: int,
-                    height: int, tile: int = TILE) -> torch.Tensor:
+                    height: int, tile: int = TILE, region: int = REGION,
+                    cluster: int = DEPTH_CLUSTER) -> torch.Tensor:
     """Depth-only raster of the visibility rows ``vis`` (I, T, 16): z
     (H, W) float32 of the nearest covered triangle, F32_FAR where none
     covers. CUDA tensors launch kernel B2, CPU tensors run
     ``rasterize_depth_plain``."""
     device = vis.device
     _check(vis, None, work)
+    side = region_side(tile, region, key_bytes=4, cluster=cluster)
     if device.type == "cpu":
         return rasterize_depth_plain(vis, work, width, height, tile)
     z = torch.empty((height, width), dtype=torch.float32, device=device)
     tiles_x, _ = _tiles(width, height, tile)
     _launch("vrt_raster_depth", device, vis.data_ptr(), work.items.data_ptr(),
-            work.items.shape[0], vis.shape[1], tiles_x, tile, width, height,
-            z.data_ptr())
+            work.items.shape[0], vis.shape[1], tiles_x, tile, side, cluster,
+            width, height, z.data_ptr())
     rasterize_depth.launches += 1
     return z
 
@@ -414,10 +453,10 @@ rasterize_depth.launches = 0
 
 
 class PairRects(NamedTuple):
-    """The visibility pass's (triangle, pixel) pairs, one pixel rectangle
-    (bbox ∩ supertile) per (work item, triangle) whose bbox meets the
-    item's supertile: top-left (x0, y0), width ``wd``, pixel count
-    ``cnt``, global id ``gid`` and the 12 plane coefficients ``planes``."""
+    """(triangle, pixel) pairs as pixel rectangles, each of one triangle
+    (e.g. its bbox ∩ a work item's supertile): top-left (x0, y0), width
+    ``wd``, pixel count ``cnt``, global id ``gid`` and the 12 plane
+    coefficients ``planes``."""
 
     x0: torch.Tensor
     y0: torch.Tensor
@@ -427,11 +466,30 @@ class PairRects(NamedTuple):
     planes: torch.Tensor
 
 
+def _window_rects(vis: torch.Tensor, inst: torch.Tensor, x0w, y0w, x1w,
+                  y1w) -> PairRects:
+    """The rects (bbox ∩ window) of the triangles of instance ``inst[k]``
+    whose bbox meets window k, [x0w, x1w] x [y0w, y1w] ((n, 1) float32,
+    inclusive, inside the frame)."""
+    T = vis.shape[1]
+    bb = vis[inst, :, 12:16]                                   # (n, T, 4)
+    hit = ((bb[..., 0] <= x1w) & (bb[..., 2] >= x0w)
+           & (bb[..., 1] <= y1w) & (bb[..., 3] >= y0w))
+    w_i, t_i = hit.nonzero(as_tuple=True)
+    rect = bb[w_i, t_i]
+    x0 = torch.maximum(torch.ceil(rect[:, 0]), x0w[w_i, 0]).long()
+    y0 = torch.maximum(torch.ceil(rect[:, 1]), y0w[w_i, 0]).long()
+    wd = torch.minimum(torch.floor(rect[:, 2]), x1w[w_i, 0]).long() - x0 + 1
+    ht = torch.minimum(torch.floor(rect[:, 3]), y1w[w_i, 0]).long() - y0 + 1
+    return PairRects(x0=x0, y0=y0, wd=wd, cnt=wd * ht,
+                     gid=inst[w_i] * T + t_i, planes=vis[inst[w_i], t_i, :12])
+
+
 def pair_rects(vis: torch.Tensor, work: WorkList, width: int, height: int,
                tile: int = TILE) -> PairRects:
-    """The (triangle, pixel) pairs the visibility pass evaluates for
-    ``work``; ``cnt.sum()`` is the data-dependent work count."""
-    T = vis.shape[1]
+    """The (triangle, pixel) pairs of every triangle's bbox ∩ supertile for
+    ``work``: the pairs the plain versions evaluate; ``cnt.sum()`` is the
+    bbox pair count."""
     tiles_x, _ = _tiles(width, height, tile)
     items = work.items[work.items[:, 0] >= 0].long()
     inst, st = items[:, 0], items[:, 1]
@@ -439,26 +497,105 @@ def pair_rects(vis: torch.Tensor, work: WorkList, width: int, height: int,
     ty0 = ((st // tiles_x) * tile).to(torch.float32)[:, None]
     tx1 = torch.clamp(tx0 + tile, max=width) - 1
     ty1 = torch.clamp(ty0 + tile, max=height) - 1
-    bb = vis[inst, :, 12:16]                                   # (W, T, 4)
-    hit = ((bb[..., 0] <= tx1) & (bb[..., 2] >= tx0)
-           & (bb[..., 1] <= ty1) & (bb[..., 3] >= ty0))
-    w_i, t_i = hit.nonzero(as_tuple=True)
-    rect = bb[w_i, t_i]
-    x0 = torch.maximum(torch.ceil(rect[:, 0]), tx0[w_i, 0]).long()
-    y0 = torch.maximum(torch.ceil(rect[:, 1]), ty0[w_i, 0]).long()
-    wd = torch.minimum(torch.floor(rect[:, 2]), tx1[w_i, 0]).long() - x0 + 1
-    ht = torch.minimum(torch.floor(rect[:, 3]), ty1[w_i, 0]).long() - y0 + 1
-    return PairRects(x0=x0, y0=y0, wd=wd, cnt=wd * ht,
-                     gid=inst[w_i] * T + t_i, planes=vis[inst[w_i], t_i, :12])
+    return _window_rects(vis, inst, tx0, ty0, tx1, ty1)
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def _blocks_live(pc: torch.Tensor, bx0, by0, bx1, by1) -> torch.Tensor:
+    """The kernels' block test (csrc/raster.cu ``block_live``, same
+    roundings): False where no pixel centre of block [bx0, bx1] x [by0,
+    by1] can be covered by the planes ``pc`` (n, 12); triangles with a NaN
+    plane float cover nothing."""
+    pxa, pxb = bx0.float() + 0.5, bx1.float() + 0.5
+    pya, pyb = by0.float() + 0.5, by1.float() + 0.5
+    scale, floor = _f32(2.0 ** -20, pc), _f32(1e-30, pc)
+    live = ~torch.isnan(pc).any(dim=1)
+    for j in (0, 3, 6, 9):
+        a, b, c = pc[:, j], pc[:, j + 1], pc[:, j + 2]
+        v = torch.stack([a * px + b * py + c
+                         for px, py in ((pxa, pya), (pxb, pya), (pxa, pyb),
+                                        (pxb, pyb))])
+        m = (a.abs() * pxb + b.abs() * pyb + c.abs()) * scale + floor
+        live &= ~(v.amax(dim=0) < -m)
+        if j == 9:
+            live &= ~(v.amin(dim=0) > _f32(1.01, pc) + m)
+    return live
+
+
+def _split_blocks(r: PairRects) -> PairRects:
+    """Rects ``r`` cut into CELL x CELL blocks from their top-left, keeping
+    the blocks that pass the block test."""
+    x0, y0, wd, gid, pc = r.x0, r.y0, r.wd, r.gid, r.planes
+    ht = r.cnt // wd
+    nbx = (wd + CELL - 1) // CELL
+    nb = nbx * ((ht + CELL - 1) // CELL)
+    rep = torch.repeat_interleave(torch.arange(nb.numel(), device=nb.device),
+                                  nb)
+    local = (torch.arange(rep.numel(), device=nb.device)
+             - (torch.cumsum(nb, 0) - nb)[rep])
+    bx0 = x0[rep] + local % nbx[rep] * CELL
+    by0 = y0[rep] + local // nbx[rep] * CELL
+    bx1 = torch.minimum(bx0 + CELL, (x0 + wd)[rep]) - 1
+    by1 = torch.minimum(by0 + CELL, (y0 + ht)[rep]) - 1
+    live = _blocks_live(pc[rep], bx0, by0, bx1, by1)
+    rep = rep[live]
+    wb = (bx1 - bx0 + 1)[live]
+    return PairRects(x0=bx0[live], y0=by0[live], wd=wb,
+                     cnt=wb * (by1 - by0 + 1)[live], gid=gid[rep],
+                     planes=pc[rep])
+
+
+def block_pair_rects(vis: torch.Tensor, work: WorkList, width: int,
+                     height: int, tile: int = TILE,
+                     region: int = REGION) -> PairRects:
+    """The (triangle, pixel) pairs kernels B1, B2 and B3a evaluate, as
+    rects: each triangle's bbox ∩ region (``region_side``) whole where it
+    holds at most SMALL_PX pixels, else the CELL x CELL blocks of it that
+    the block test keeps. ``cnt.sum()`` is the evaluated pair count; the
+    covered pairs are those of ``pair_rects``."""
+    side = region_side(tile, region, key_bytes=4)
+    k = tile // side
+    tiles_x, _ = _tiles(width, height, tile)
+    items = work.items[work.items[:, 0] >= 0].long()
+    sub = torch.arange(k * k, device=items.device)
+    inst = items[:, 0:1].expand(-1, k * k).reshape(-1)
+    st = items[:, 1:2]
+    rx0 = ((st % tiles_x) * tile + sub % k * side).reshape(-1)
+    ry0 = ((st // tiles_x) * tile + sub // k * side).reshape(-1)
+    inside = (rx0 < width) & (ry0 < height)
+    inst, rx0, ry0 = inst[inside], rx0[inside], ry0[inside]
+    x0w, y0w = rx0.float()[:, None], ry0.float()[:, None]
+    x1w = torch.clamp(x0w + side, max=width) - 1
+    y1w = torch.clamp(y0w + side, max=height) - 1
+    parts = []
+    step = max(1, (1 << 19) // max(vis.shape[1], 1))
+    for lo in range(0, inst.numel(), step):
+        sl = slice(lo, lo + step)
+        r = _window_rects(vis, inst[sl], x0w[sl], y0w[sl], x1w[sl], y1w[sl])
+        some = (r.wd > 0) & (r.cnt > 0)
+        small = some & (r.cnt <= SMALL_PX)
+        big = some & (r.cnt > SMALL_PX)
+        parts += [PairRects(*(f[small] for f in r)),
+                  _split_blocks(PairRects(*(f[big] for f in r)))]
+    if not parts:
+        return _window_rects(vis, inst, x0w, y0w, x1w, y1w)
+    return PairRects(*(torch.cat(f) for f in zip(*parts)))
 
 
 def _covered_pairs(vis: torch.Tensor, work: WorkList, width: int,
-                   height: int, tile: int, chunk: int, wire_px: float = 0.0):
+                   height: int, tile: int, chunk: int, wire_px: float = 0.0,
+                   rects: PairRects | None = None):
     """The kernels' coverage, expanded in plain PyTorch: yields, ``chunk``
     (triangle, pixel) pairs at a time, the covered pairs' (pixel index, z
-    with -0.0 made +0.0, global id)."""
+    with -0.0 made +0.0, global id) over ``rects`` (default
+    ``pair_rects``)."""
     dev = vis.device
-    x0, y0, wd, cnt, gid, pc = pair_rects(vis, work, width, height, tile)
+    if rects is None:
+        rects = pair_rects(vis, work, width, height, tile)
+    x0, y0, wd, cnt, gid, pc = rects
     start = torch.cumsum(cnt, 0) - cnt
     total = int(cnt.sum())
     for lo in range(0, total, chunk):
