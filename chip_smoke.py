@@ -24,9 +24,11 @@ Phases, each printing one line and raising on failure:
    reverse-z and in wireframe, and kernel B3a under reverse-z, against
    their plain versions at the same inputs;
 4. two-phase kernels: B3a (z + id) against its plain version and B1's z
-   and id, the winner filter's live (item, cell) pairs, B3b (the winners'
-   attrs) against its plain version and B1's attrs, all bitwise; CUDA-event
-   times of B3a, the filter, B3b, the whole two-phase raster and B1;
+   and id, the winner filter kernel's work list and live (item, cell)
+   pairs against its plain version, B3b (the winners' attrs) against its
+   plain version and B1's attrs, the whole two-phase raster against B1, all
+   bitwise; CUDA-event times of B3a, the filter kernel and its plain
+   version, B3b, the whole two-phase raster and B1;
 5. golden frame: the 256x128 frame of tests/test_golden.py rendered
    through the kernel, held to the stored frames;
 6. horizon path: the 1080p horizon-shadow flythrough with the boot cube
@@ -34,9 +36,9 @@ Phases, each printing one line and raising on failure:
    covered in (0, 1) and without overflow; CUDA-event frame times;
 7. two-phase path (this slice's): the same flythrough with
    ``RasterSettings(two_phase=True)``, each frame's ldr, depth, prim_id and
-   overflow mask bit-identical to phase 6's frame, 65 launches each of B3a
-   and B3b and none of B1; then a few frames each with reverse-z and in
-   wireframe, finite, covered in (0, 1), without overflow;
+   overflow mask bit-identical to phase 6's frame, 65 launches each of
+   B3a, the filter and B3b and none of B1; then a few frames each with
+   reverse-z and in wireframe, finite, covered in (0, 1), without overflow;
 8. depth kernel vs plain: kernel B2 against its plain version and against
    kernel B1's z at the map cell's light-pass inputs (2048x2048, cameras 0
    and 13): z bitwise equal to both, both timed with CUDA events, with the
@@ -64,11 +66,14 @@ map path, B3a and B3b on the two-phase path), and its error, times and
 bound at camera 13, with each camera's under ``cameras`` (B1's at the
 map path's inputs, B3a's and B3b's at the horizon path's), and for B1, B2
 and B3a the pairs their block test evaluates (``evaluated_pairs``) beside
-the covered and bbox pairs, and for B1 and B2 the time of each layout
-(``layout_ms``); the bound's
-operations count the (triangle, pixel) pairs the triangles cover; then
+the covered and bbox pairs, for B1 and B2 the time of each layout
+(``layout_ms``), and beside B3b the filter kernel's launches, time, plain
+time and bound (``filter_*``); the bound's operations count the
+(triangle, pixel) pairs the triangles cover; then
 the nvidia-smi line, and as the last line ``{"ok": true, "device":
-{...}}``. Without a CUDA device it raises and prints no result.
+{...}}``. Without a CUDA device it raises and prints no result. Kernel
+times queue their launches behind a device sleep, so they are the
+device's and not the host's launch rate (``cuda_ms``).
 """
 
 from __future__ import annotations
@@ -122,20 +127,35 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn`` on the current stream (CUDA events)."""
+def cuda_ms(fn, reps: int, queued: bool = True) -> float:
+    """Mean milliseconds of ``fn`` on the current stream (CUDA events).
+    ``queued``: the reps queue behind a device-side sleep, lengthened until
+    the host has queued them all before it ends, so the time is the
+    device's, not the host's launch rate (a kernel of tens of microseconds
+    launches slower than it runs). Plain versions, some of which
+    synchronise the host, run unqueued."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    cycles = 1 << 24
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()   # the device still sleeps
+        end.synchronize()
+        if ahead or not queued:
+            return start.elapsed_time(end) / reps
+        if cycles >= 1 << 32:
+            raise RuntimeError("the host could not queue the reps ahead of "
+                               "the device")
+        cycles *= 4
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -292,7 +312,8 @@ def phase_kernel(name, r, params, prepass, cams) -> dict:
             packed, work, *args, **kw), same)
         k_ms = cuda_ms(lambda: raster_cuda.rasterize(packed, work, *args), 20)
         p_ms = cuda_ms(
-            lambda: raster_cuda.rasterize_plain(packed, work, *args), 3)
+            lambda: raster_cuda.rasterize_plain(packed, work, *args), 3,
+            queued=False)
         n_px = int((out[1] >= 0).sum())
         in_bytes, pairs = raster_work(packed.vis, work, *args)
         b = bound(in_bytes + winner_bytes(out[1])
@@ -373,19 +394,22 @@ def launch_counted():
     from vrenderer_tpu_torch.ops import raster_cuda
 
     return (raster_cuda.rasterize, raster_cuda.rasterize_depth,
-            raster_cuda.rasterize_zid, raster_cuda.rasterize_resolve)
+            raster_cuda.rasterize_zid, raster_cuda.filter_work_to_winners,
+            raster_cuda.rasterize_resolve)
 
 
 def read_launches() -> dict:
     return dict(zip(("raster", "raster_depth", "raster_zid",
-                     "raster_resolve"),
+                     "raster_filter", "raster_resolve"),
                     (fn.launches for fn in launch_counted())))
 
 
-def launches(raster=0, raster_depth=0, raster_zid=0, raster_resolve=0):
+def launches(raster=0, raster_depth=0, raster_zid=0, raster_filter=0,
+             raster_resolve=0):
     """The expected counts of ``read_launches``."""
     return {"raster": raster, "raster_depth": raster_depth,
-            "raster_zid": raster_zid, "raster_resolve": raster_resolve}
+            "raster_zid": raster_zid, "raster_filter": raster_filter,
+            "raster_resolve": raster_resolve}
 
 
 def phase_flythrough(name, r, params, cams, prepass=None, frames=None,
@@ -477,11 +501,13 @@ def phase_modes_kernel(r, params, prepass, cams) -> None:
 
 
 def phase_two_phase_kernels(r, params, prepass, cams):
-    """Kernels B3a and B3b at the horizon path's inputs: B3a's z and id
-    bitwise equal to its plain version and to B1's, the winner filter's
-    live (item, cell) pairs, B3b's attrs bitwise equal to its plain version
-    and to B1's; CUDA-event times of B3a, the filter, B3b, the whole
-    two-phase raster and B1. Returns the JSON numbers of B3a and B3b."""
+    """Kernels B3a, the winner filter and B3b at the horizon path's inputs:
+    B3a's z and id bitwise equal to its plain version and to B1's, the
+    filter kernel's work list and live (item, cell) pairs equal to its plain
+    version, B3b's attrs bitwise equal to its plain version and to B1's,
+    the two-phase raster equal to B1; CUDA-event times of B3a, the filter,
+    B3b, the whole two-phase raster and B1. Returns the JSON numbers of B3a
+    and B3b (with the filter's)."""
     import torch
 
     from vrenderer_tpu_torch.ops import raster_cuda
@@ -501,8 +527,18 @@ def phase_two_phase_kernels(r, params, prepass, cams):
             raise RuntimeError(f"camera {i}: B3a differs from plain")
         if not (torch.equal(z, b1[0]) and torch.equal(ids, b1[1])):
             raise RuntimeError(f"camera {i}: B3a differs from B1's z/id")
+        before = raster_cuda.filter_work_to_winners.launches
         work2, live = raster_cuda.filter_work_to_winners(work, ids, T, W, H,
                                                          tile, **cells)
+        torch.cuda.synchronize()
+        if raster_cuda.filter_work_to_winners.launches != before + 1:
+            raise RuntimeError("the filter wrapper did not count its launch")
+        wp, lp = raster_cuda.filter_work_to_winners_plain(work, ids, T, W, H,
+                                                          tile, **cells)
+        if not (torch.equal(work2.items, wp.items) and torch.equal(live, lp)
+                and torch.equal(work2.num_items, wp.num_items)):
+            raise RuntimeError(f"camera {i}: the filter kernel differs from "
+                               f"plain")
         attrs = raster_cuda.rasterize_resolve(packed, work2, live, ids, W, H,
                                               tile, **cells)
         ap = raster_cuda.rasterize_resolve_plain(packed, work2, live, ids, W,
@@ -528,9 +564,13 @@ def phase_two_phase_kernels(r, params, prepass, cams):
             "b1": cuda_ms(lambda: raster_cuda.rasterize(
                 packed, work, W, H, tile), 20),
             "b3a_plain": cuda_ms(lambda: raster_cuda.rasterize_zid_plain(
-                packed, work, W, H, tile), 3),
+                packed, work, W, H, tile), 3, queued=False),
+            "filter_plain": cuda_ms(
+                lambda: raster_cuda.filter_work_to_winners_plain(
+                    work, ids, T, W, H, tile, **cells), 20, queued=False),
             "b3b_plain": cuda_ms(lambda: raster_cuda.rasterize_resolve_plain(
-                packed, work2, live, ids, W, H, tile, **cells), 3),
+                packed, work2, live, ids, W, H, tile, **cells), 3,
+                queued=False),
         }
         used = int((work.items[:, 0] >= 0).sum())
         n_live = int(live.sum())
@@ -539,21 +579,31 @@ def phase_two_phase_kernels(r, params, prepass, cams):
         b_zid = bound(in_bytes + W * H * 8, pairs["covered_pairs"] * PAIR_OPS)
         b_res = bound(W * H * (4 + 32) + winner_bytes(ids) + live.numel()
                       + work2.items.numel() * 4, n_px * RESOLVE_OPS)
+        # the filter reads the ids and the work list, writes both outputs
+        b_fil = bound(W * H * 4 + work.items.numel() * 8 + live.numel(), 0)
         log(f"two-phase kernels camera {i}: B3a z/id equal to plain and "
-            f"B1, B3b attrs equal to plain and B1, two-phase equal to B1; "
-            f"live (item, cell) pairs {n_live} of {used * live.shape[1]} "
+            f"B1, the filter's work list and live pairs equal to plain, B3b "
+            f"attrs equal to plain and B1, two-phase "
+            f"equal to B1; live (item, cell) pairs {n_live} of "
+            f"{used * live.shape[1]} "
             f"({n_live / max(used * live.shape[1], 1):.4f}), live items "
             f"{int((work2.items[:, 0] >= 0).sum())} of {used}; "
             f"{pairs_text(pairs)}; "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
             + f"; bound B3a {b_zid['bound_ms']:.4f} ms "
-            f"({b_zid['bound_by']}), B3b {b_res['bound_ms']:.4f} ms "
-            f"({b_res['bound_by']})")
+            f"({b_zid['bound_by']}), filter {b_fil['bound_ms']:.4f} ms "
+            f"({b_fil['bound_by']}), B3b {b_res['bound_ms']:.4f} ms "
+            f"({b_res['bound_by']}); chain / B1 "
+            f"{t['two_phase'] / t['b1']:.3f}")
         zid_cam.append({"max_abs_err": float((z - zp).abs().max()),
                         "ms": t["b3a"], "plain_ms": t["b3a_plain"], **b_zid,
                         **pairs})
         res_cam.append({"max_abs_err": float((attrs - ap).abs().max()),
-                        "ms": t["b3b"], "plain_ms": t["b3b_plain"], **b_res})
+                        "ms": t["b3b"], "plain_ms": t["b3b_plain"], **b_res,
+                        "filter_ms": t["filter"],
+                        "filter_plain_ms": t["filter_plain"],
+                        "filter_bound_ms": b_fil["bound_ms"],
+                        "chain_ms": t["two_phase"], "b1_ms": t["b1"]})
     return per_camera(zid_cam), per_camera(res_cam)
 
 
@@ -573,7 +623,7 @@ def phase_two_phase_path(device, params, cams, single) -> list:
     ms, launched = phase_flythrough("two-phase horizon", r, params, cams,
                                     prepass, keep=outs)
     n = cams.eye.shape[0] + 1           # the frames and the warm-up frame
-    if launched != launches(raster_zid=n, raster_resolve=n):
+    if launched != launches(raster_zid=n, raster_filter=n, raster_resolve=n):
         raise RuntimeError(f"two-phase path launches {launched}")
     for i, (a, b) in enumerate(zip(outs, single)):
         for f in ("ldr", "depth", "prim_id", "overflow_mask"):
@@ -644,7 +694,8 @@ def phase_depth_kernel(r, params, cams) -> dict:
         k_ms = cuda_ms(lambda: raster_cuda.rasterize_depth(vis, work, *args),
                        20)
         p_ms = cuda_ms(
-            lambda: raster_cuda.rasterize_depth_plain(vis, work, *args), 3)
+            lambda: raster_cuda.rasterize_depth_plain(vis, work, *args), 3,
+            queued=False)
         covered = float((z < 2.0).float().mean())
         in_bytes, pairs = raster_work(vis, work, *args)
         b = bound(in_bytes + res * res * 4, pairs["covered_pairs"] * PAIR_OPS)
@@ -871,7 +922,8 @@ def main() -> int:
          "library_ms": None},
         {"name": "raster_resolve", "route": "cuda", "source": src,
          "replaces": "vrenderer_tpu/ops/raster_pallas.py:1573",
-         "launches": two_launches["raster_resolve"], **kern_res,
+         "launches": two_launches["raster_resolve"],
+         "filter_launches": two_launches["raster_filter"], **kern_res,
          "library_ms": None},
     ]}))
     print(nvidia_smi())

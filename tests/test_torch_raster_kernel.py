@@ -8,9 +8,10 @@ the single-phase one; adversarial inputs for the kernels' region merge and
 block test (near-plane-sized bboxes, edges through block-corner pixel
 centres, many instances in one supertile, instance-major work lists with
 unused slots, ragged frames, regions without items) against a per-pixel
-numpy reference; and on the card, the CUDA kernels B1, B2, B3a and B3b
-equal to their plain versions on whole frames' raster and light-view
-inputs.
+numpy reference; B3b and the winner filter on adversarial work lists and
+id images against a numpy reference of their contract; and on the card,
+the CUDA kernels B1, B2, B3a, B3b and the filter equal to their plain
+versions on whole frames' raster and light-view inputs.
 
 CPU cases run the plain version; CUDA cases (marker ``cuda``) launch the
 kernel and skip where there is no card. The file imports no JAX, so on the
@@ -365,6 +366,7 @@ def test_two_phase_wrappers_validate_and_count_only_kernel_launches(device):
     work = raster_cuda.full_work_list(1, W, H, device=device)
     on_card = device.type == "cuda"
     b_zid = raster_cuda.rasterize_zid.launches
+    b_fil = raster_cuda.filter_work_to_winners.launches
     b_res = raster_cuda.rasterize_resolve.launches
     b_b1 = raster_cuda.rasterize.launches
     z, ids = raster_cuda.rasterize_zid(packed, work, W, H)
@@ -373,9 +375,19 @@ def test_two_phase_wrappers_validate_and_count_only_kernel_launches(device):
     raster_cuda.rasterize_resolve(packed, work2, live, ids, W, H)
     raster_cuda.rasterize_two_phase(packed, work, W, H)
     assert raster_cuda.rasterize_zid.launches == b_zid + 2 * on_card
+    assert raster_cuda.filter_work_to_winners.launches == b_fil + 2 * on_card
     assert raster_cuda.rasterize_resolve.launches == b_res + 2 * on_card
     assert raster_cuda.rasterize.launches == b_b1
     other = "cpu" if on_card else "meta"
+    bad_filter = [(work, ids.long()), (work, ids[:, :-1].contiguous()),
+                  (work, ids.t()), (work, ids.to(other)),
+                  (work._replace(items=work.items.long()), ids),
+                  (work._replace(items=work.items.t()), ids),
+                  (work._replace(items=work.items[:, :1].contiguous()), ids)]
+    for w, i in bad_filter:
+        with pytest.raises(ValueError):
+            raster_cuda.filter_work_to_winners(w, i, 1, W, H)
+    assert raster_cuda.filter_work_to_winners.launches == b_fil + 2 * on_card
     with pytest.raises(ValueError):
         raster_cuda.rasterize_zid(packed._replace(vis=packed.vis.double()),
                                   work, W, H)
@@ -645,3 +657,167 @@ def test_region_side_and_tiles_the_kernels_cannot_hold(device):
     # B2's 4-byte keys fit a 200-px tile
     z = raster_cuda.rasterize_depth(packed.vis, work, W, H, tile=200)
     assert torch.all(z == 0.5)
+
+
+RESOLVE_CASES = ("interleaved", "duplicates", "ragged", "limit",
+                 "background", "empty")
+CELLS = ((16, 128), (8, 128), (16, 64), (8, 64))   # (sub_h, win_w)
+
+
+def _resolve_inputs(case, sub_h, win_w, tile=128):
+    """(coef (I, T, 27), ids (h, w) int32, items (n, 2) int32, live (n,
+    n_cell) bool, w, h) for B3b and the filter: 8x8 blocks of a few
+    instances' ids with scattered background pixels, every (instance,
+    supertile) pair they hold plus absent ones, shuffled among unused slots
+    (some with a supertile), random live rows (dead cells holding winners,
+    live bits on unused slots)."""
+    rng = np.random.default_rng(RESOLVE_CASES.index(case) * 10 + sub_h
+                                + win_w)
+    w, h = (250, 120) if case == "ragged" else (W, H)
+    I, T = ((raster_cuda.MAX_RESOLVE_INSTANCES, 1) if case == "limit"
+            else (37, 3))
+    tiles_x = -(-w // tile)
+    n_st = tiles_x * -(-h // tile)
+    pool = rng.choice(I, size=12, replace=False)
+    if case == "limit":
+        pool[:4] = [I - 1, I - 32, 31, 32]      # bitmap word edges
+    blk = rng.choice(pool, size=(-(-h // 8), -(-w // 8)))
+    inst = np.repeat(np.repeat(blk, 8, 0), 8, 1)[:h, :w]
+    ids = (inst * T + rng.integers(0, T, (h, w))).astype(np.int32)
+    ids[rng.random((h, w)) < 0.2] = -1
+    if case == "background":
+        ids[:] = -1
+    y, x = np.mgrid[0:h, 0:w]
+    st = (y // tile) * tiles_x + x // tile
+    cov = ids >= 0
+    pairs = {(int(i), int(s)) for i, s in zip(ids[cov] // T, st[cov])}
+    pairs |= {(int(i), int(s)) for i, s in
+              zip(rng.choice(pool, 6), rng.integers(0, n_st, 6))}
+    items = [list(p) for p in sorted(pairs)]
+    if case == "duplicates":
+        items += [list(p) for p in sorted(pairs)[::2]]
+    items += [[-1, -1]] * 5 + [[-1, s] for s in range(n_st)]
+    items = np.array(items, np.int32)[rng.permutation(len(items))]
+    if case == "empty":
+        items = np.zeros((0, 2), np.int32)
+    n_cell = (tile // sub_h) * (tile // win_w)
+    live = rng.random((len(items), n_cell)) < 0.6
+    coef = rng.normal(size=(I, T, raster_cuda.NUM_COEF)).astype(np.float32)
+    return coef, ids, items, live, w, h
+
+
+def _resolve_reference(coef, ids, items, live, sub_h, win_w, tile=128):
+    """attrs per pixel in numpy float32 (one rounding per operation): the
+    winner's where some slot holds its (instance, supertile) item live at
+    the pixel's cell, else 0."""
+    h, w = ids.shape
+    T = coef.shape[1]
+    n_win = tile // win_w
+    n_cell = (tile // sub_h) * n_win
+    tiles_x = -(-w // tile)
+    y, x = np.mgrid[0:h, 0:w]
+    st = (y // tile) * tiles_x + x // tile
+    cell = ((y % tile) // sub_h) * n_win + (x % tile) // win_w
+    k, c = np.nonzero(live & (items[:, :1] >= 0))
+    on = (items[k, 0].astype(np.int64) * 10_000 + items[k, 1]) * n_cell + c
+    key = ((ids // T).astype(np.int64) * 10_000 + st) * n_cell + cell
+    write = (ids >= 0) & np.isin(key, on)
+    cf = coef.reshape(-1, raster_cuda.NUM_COEF)[np.where(write, ids, 0)]
+    px = x.astype(np.float32) + np.float32(0.5)
+    py = y.astype(np.float32) + np.float32(0.5)
+
+    def plane(j):
+        return cf[..., j] * px + cf[..., j + 1] * py + cf[..., j + 2]
+
+    inv_w = plane(0)
+    denom = np.where(np.abs(inv_w) > np.float32(1e-20), inv_w,
+                     np.float32(1.0))
+    attrs = np.stack([plane(3 * (a + 1)) / denom for a in range(8)], -1)
+    return np.where(write[..., None], attrs, np.float32(0.0))
+
+
+def _filter_reference(items, ids, T, sub_h, win_w, tile=128):
+    """(items2, live) of the filter: per cell the [min, max] of id // T over
+    its covered in-frame pixels; an item is live at a cell iff its
+    instance lies in that range."""
+    h, w = ids.shape
+    tiles_x = -(-w // tile)
+    n_sub, n_win = tile // sub_h, tile // win_w
+    rows, cols = -(-h // tile) * n_sub, tiles_x * n_win
+    mn = np.full((rows, cols), 2 ** 30, np.int64)
+    mx = np.full((rows, cols), -1, np.int64)
+    y, x = np.nonzero(ids >= 0)
+    np.minimum.at(mn, (y // sub_h, x // win_w), ids[y, x] // T)
+    np.maximum.at(mx, (y // sub_h, x // win_w), ids[y, x] // T)
+    c = np.arange(n_sub * n_win)[None, :]
+    inst, st = items[:, :1].astype(np.int64), items[:, 1:]
+    r = (st // tiles_x) * n_sub + c // n_win
+    q = (st % tiles_x) * n_win + c % n_win
+    used = inst >= 0
+    r, q = np.where(used, r, 0), np.where(used, q, 0)
+    live = used & (mn[r, q] <= inst) & (inst <= mx[r, q])
+    return np.where(live.any(1, keepdims=True), items, -1), live
+
+
+@pytest.mark.parametrize("case", RESOLVE_CASES)
+def test_resolve_and_filter_match_per_pixel_reference(device, case):
+    """B3b and the winner filter on adversarial inputs (unused slots among
+    items in any order, duplicated items with mixed live rows, dead cells
+    holding winners, a ragged 250x120 frame, 37 instance slots and the
+    bitmap's limit, an all-background image, an empty work list) at every
+    cell shape of the configs (B3b's 16-row bands hold one or two cell
+    rows) equal a per-pixel numpy reference of the contract; B3b also with
+    coefficients off a 16-byte boundary and after the filter."""
+    for sub_h, win_w in CELLS:
+        coef, ids, items, live, w, h = _resolve_inputs(case, sub_h, win_w)
+        I, T = coef.shape[:2]
+        packed = raster_cuda.PackedTris(
+            vis=torch.zeros((I, T, raster_cuda.VIS_STRIDE), device=device),
+            coef=torch.as_tensor(coef, device=device))
+        work = raster_cuda.WorkList(
+            items=torch.as_tensor(items, device=device),
+            num_items=torch.tensor(len(items), device=device))
+        tid = torch.as_tensor(ids, device=device)
+        cells = {"sub_h": sub_h, "win_w": win_w}
+        ref = _resolve_reference(coef, ids, items, live, sub_h, win_w)
+        attrs = raster_cuda.rasterize_resolve(
+            packed, work, torch.as_tensor(live, device=device), tid, w, h,
+            **cells)
+        assert np.array_equal(attrs.cpu().numpy(), ref), (sub_h, win_w)
+        # coefficients 4 bytes past a 16-byte boundary: read float by float
+        shifted = torch.zeros(coef.size + 1, device=device)[1:]
+        shifted.copy_(packed.coef.reshape(-1))
+        attrs = raster_cuda.rasterize_resolve(
+            packed._replace(coef=shifted.view(coef.shape)), work,
+            torch.as_tensor(live, device=device), tid, w, h, **cells)
+        assert np.array_equal(attrs.cpu().numpy(), ref)
+        items2, live2 = _filter_reference(items, ids, T, sub_h, win_w)
+        work2, tlive2 = raster_cuda.filter_work_to_winners(work, tid, T, w, h,
+                                                           **cells)
+        assert np.array_equal(work2.items.cpu().numpy(), items2)
+        assert np.array_equal(tlive2.cpu().numpy(), live2)
+        assert int(work2.num_items) == len(items)
+        attrs = raster_cuda.rasterize_resolve(packed, work2, tlive2, tid, w,
+                                              h, **cells)
+        ref2 = _resolve_reference(coef, ids, items2, live2, sub_h, win_w)
+        assert np.array_equal(attrs.cpu().numpy(), ref2)
+        # the filter keeps every winner's own item live
+        assert np.array_equal(ref2 != 0, _resolve_reference(
+            coef, ids, items, np.ones_like(live), sub_h, win_w) != 0)
+
+
+def test_resolve_raises_above_the_instance_limit(device):
+    """One instance slot past the bitmap's limit raises before any launch,
+    on every device."""
+    I = raster_cuda.MAX_RESOLVE_INSTANCES + 1
+    packed = raster_cuda.PackedTris(
+        vis=torch.zeros((I, 1, raster_cuda.VIS_STRIDE), device=device),
+        coef=torch.zeros((I, 1, raster_cuda.NUM_COEF), device=device))
+    work = raster_cuda.full_work_list(I, W, H, device=device)
+    ids = torch.full((H, W), -1, dtype=torch.int32, device=device)
+    live = torch.ones((work.items.shape[0], 8), dtype=torch.bool,
+                      device=device)
+    before = raster_cuda.rasterize_resolve.launches
+    with pytest.raises(ValueError):
+        raster_cuda.rasterize_resolve(packed, work, live, ids, W, H)
+    assert raster_cuda.rasterize_resolve.launches == before

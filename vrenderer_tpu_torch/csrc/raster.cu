@@ -19,9 +19,15 @@
 //
 // B3b, `vrt_raster_resolve`, replaces `_resolve_kernel`, launched by
 // `rasterize_pallas_resolve` (two-phase phase 2): the 8 attributes of the
-// phase-1 winners, evaluated only over the (work item, cell) pairs that
-// `filter_work_to_winners` left live, with B1's arithmetic, so the attrs
-// are bit-identical to B1's.
+// phase-1 winners where the winner's (instance, supertile) work item is
+// live at the pixel's cell, 0 elsewhere, with B1's arithmetic, so the
+// attrs are bit-identical to B1's. One launch, pixel-major: each block
+// owns a band of rows of one supertile, reads and writes each of its
+// pixels once (below).
+//
+// The winner filter, `vrt_filter_winners`, is the counterpart of the JAX
+// package's `filter_work_to_winners` (plain JAX there, no Pallas kernel):
+// one launch, one block per supertile (below).
 //
 // What bounds B1, B2 and B3a on the H100, and the design that answers it
 // (one template, `region_kernel`, one launch each):
@@ -100,13 +106,33 @@
 // and takes its extremes over the block at corner centres: the margin only
 // widens a test that is already exact, and keeps it so where S overflows.)
 //
-// B3b: a fill zeroes the background pixels' attrs, then one block per work
-// item walks its live cells (sub_h x win_w pixel blocks of the supertile)
-// and writes the attrs of every pixel whose winner belongs to the item's
-// instance. A covered pixel's winner has exactly one (instance, supertile)
-// item, and the filter's instance range per cell keeps it live, so every
-// covered pixel is written exactly once. It reads the id image once per
-// live (item, cell) pair (4 B per pixel, from L2).
+// B3b is bound by bytes: 4 B of id read and 32 B of attrs written per
+// pixel, and the distinct winners' 108 B of coefficients; per covered
+// pixel it evaluates 9 planes and 8 IEEE divisions. The TPU kernel walks
+// work items because its grid does; here one block per band of `rows` rows
+// (a multiple of sub_h) of a supertile (a) scans the work list for the
+// supertile's items and sets bit `inst` of a shared-memory bitmap of each
+// band cell where the item's live byte is set, which makes "any live copy"
+// the rule for an item listed twice, then (b) takes the band's pixels in
+// row order (coalesced id reads), writes zeros where the id is background
+// or its instance's bit is clear, and otherwise the winner's attrs
+// (`winner_attrs`, as B1) as two float4 stores. The bitmap holds n_inst
+// bits a cell, at most kMaxInst. The divisions by T, tile, sub_h and win_w
+// are a multiply-high and a shift (`Div`). The coefficient gather is the
+// other cost: each load of a warp touches one L1 line per distinct winner,
+// so 27 scalar loads a pixel kept a first version at 2.4-2.6x its bound;
+// each pixel here reads its winner's row as 8 aligned float4 and shifts it
+// in registers (`load_coef`). Staging a warp's distinct rows in shared
+// memory (deduplicated with __match_any_sync) was slower still: the warp
+// waits on its staged loads before any arithmetic.
+//
+// The filter is bound by its 4 B a pixel of id reads; its TPU-era form was
+// a dozen small launches. One block per supertile reduces, per cell, the
+// min and max of id / T over the cell's in-frame covered pixels (lane
+// groups of one cell reduce with shuffles, then one shared atomic each),
+// then writes the live row of every item of its supertile (instance in
+// [min, max]) and the item, or (-1, -1) where no cell is live. One more
+// block writes the rows of unused slots.
 //
 // Exactness: every plane is evaluated as (a*px + b*py) + c with separate
 // IEEE roundings (__fmul_rn/__fadd_rn; the library is also built with
@@ -136,6 +162,9 @@ constexpr float kMarginScale = 9.5367431640625e-7f;  // 2^-20 = 16 u
 constexpr float kMarginFloor = 1e-30f;
 constexpr size_t kMaxSmem = 232448;      // per block on the H100
 constexpr int kMaxCluster = 16;          // 8 is portable; the H100 allows 16
+// B3b's instance bitmap: bench.py's envelope has 4096 terrain slots, plus
+// the scene's block slots
+constexpr int kMaxInst = 8192;
 
 enum Output { kFull, kZid, kDepth };
 
@@ -543,49 +572,257 @@ int launch_regions(const float* vis, const float* coef, const int* items,
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(kBlock)
-zero_background_attrs_kernel(const int* __restrict__ id, int num_pixels,
-                             float* __restrict__ attrs) {
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  if (p >= num_pixels || id[p] >= 0) return;
-#pragma unroll
-  for (int i = 0; i < kAttrs; ++i) attrs[(size_t)p * kAttrs + i] = 0.0f;
+// n / d for 0 <= n < 2^31 as a multiply-high and a shift (Granlund and
+// Montgomery): with s = ceil(log2 d) and m = floor(2^32 (2^s - d) / d) + 1,
+// n / d = (umulhi(n, m) + n) >> s, the sum fitting 32 bits as n < 2^31.
+struct Div {
+  unsigned int m, s;
+};
+
+Div make_div(int d) {
+  unsigned int s = 0;
+  while ((1ull << s) < (unsigned long long)d) ++s;
+  const unsigned long long m =
+      (1ull << 32) * ((1ull << s) - (unsigned long long)d) / d + 1;
+  return Div{(unsigned int)m, s};
 }
 
-// B3b: one block per work item; live is (n_items, n_cell) bytes.
+__device__ __forceinline__ int div_by(int n, Div d) {
+  return (int)((__umulhi((unsigned int)n, d.m) + (unsigned int)n) >> d.s);
+}
+
+// The cell grid of a supertile: cells of sub_h x win_w pixels, n_win a
+// cell row.
+struct Cells {
+  int tile, sub_h, win_w, n_win, n_cell;
+  Div tile_d, sub_d, win_d;
+};
+
+Cells make_cells(int tile, int sub_h, int win_w) {
+  Cells c;
+  c.tile = tile;
+  c.sub_h = sub_h;
+  c.win_w = win_w;
+  c.n_win = tile / win_w;
+  c.n_cell = tile / sub_h * c.n_win;
+  c.tile_d = make_div(tile);
+  c.sub_d = make_div(sub_h);
+  c.win_d = make_div(win_w);
+  return c;
+}
+
+bool cells_ok(int tile, int sub_h, int win_w) {
+  return tile > 0 && sub_h > 0 && win_w > 0 && tile % sub_h == 0 &&
+         tile % win_w == 0;
+}
+
+// Triangle gid's 27 coefficients (of n_floats) into c: with `vec` (coef
+// 16-byte aligned), the 8 aligned float4 around its row, shifted by the
+// row's offset in the first (rows are 27 floats, so it varies); a row
+// whose float4s would pass the array's end is read float by float.
+__device__ __forceinline__ void load_coef(const float* __restrict__ coef,
+                                          unsigned int gid,
+                                          unsigned int n_floats, bool vec,
+                                          float* c) {
+  const unsigned int f0 = gid * kCoefStride;
+  const unsigned int base = f0 & ~3u;
+  const unsigned int o = f0 & 3u;
+  if (vec && base + 32u <= n_floats) {
+    float v[32];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const float4 q =
+          __ldg(reinterpret_cast<const float4*>(coef + base) + m);
+      v[4 * m] = q.x;
+      v[4 * m + 1] = q.y;
+      v[4 * m + 2] = q.z;
+      v[4 * m + 3] = q.w;
+    }
+#pragma unroll
+    for (int k = 0; k < kCoefStride; ++k) {
+      const float lo = (o & 2u) ? v[k + 2] : v[k];
+      const float hi = (o & 2u) ? v[k + 3] : v[k + 1];
+      c[k] = (o & 1u) ? hi : lo;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kCoefStride; ++k) c[k] = __ldg(coef + f0 + k);
+  }
+}
+
+// B3b: one block per band of `rows` pixel rows of a supertile, blockIdx.x
+// = supertile * (tile / rows) + band. Dynamic shared memory: the band's
+// cells' instance bitmaps, `words` 32-bit words each.
 __global__ void __launch_bounds__(kBlock)
-winner_resolve_kernel(const float* __restrict__ coef,
-                      const int* __restrict__ items,
-                      const unsigned char* __restrict__ live, int n_cell,
-                      int tris_per_inst, int tiles_x, int tile, int sub_h,
-                      int win_w, int width, int height,
-                      const int* __restrict__ id, float* __restrict__ attrs) {
-  const int inst = items[2 * blockIdx.x];
-  if (inst < 0) return;  // unused slot, or an item the filter found dead
-  const int st = items[2 * blockIdx.x + 1];
-  const int tx0 = (st % tiles_x) * tile;
-  const int ty0 = (st / tiles_x) * tile;
-  const int n_win = tile / win_w;
-  const int cell_px = sub_h * win_w;
-  const unsigned char* lv = live + (size_t)blockIdx.x * n_cell;
-  for (int c = 0; c < n_cell; ++c) {
-    if (!lv[c]) continue;
-    const int cx0 = tx0 + (c % n_win) * win_w;
-    const int cy0 = ty0 + (c / n_win) * sub_h;
-    for (int j = threadIdx.x; j < cell_px; j += kBlock) {
-      const int x = cx0 + j % win_w;
-      const int y = cy0 + j / win_w;
-      if (x >= width || y >= height) continue;
-      const size_t p = (size_t)y * width + x;
-      const int gid = id[p];
-      if (gid < 0 || gid / tris_per_inst != inst) continue;
-      winner_attrs(coef + (size_t)gid * kCoefStride, x, y,
-                   attrs + p * kAttrs);
+resolve_kernel(const float* __restrict__ coef, unsigned int n_floats,
+               bool vec, const int* __restrict__ items,
+               const unsigned char* __restrict__ live, int n_items,
+               int n_inst, Div tris, int tiles_x, Cells g, int rows,
+               int width, int height, const int* __restrict__ id,
+               float* __restrict__ attrs) {
+  extern __shared__ unsigned int s_bits[];
+  const int bands = g.tile / rows;
+  const int st = blockIdx.x / bands;
+  const int tx0 = st % tiles_x * g.tile;
+  const int by0 = blockIdx.x % bands * rows;  // the band's row in its tile
+  const int y0 = st / tiles_x * g.tile + by0;
+  if (y0 >= height) return;  // a band wholly below the frame
+  const int cell0 = by0 / g.sub_h * g.n_win;
+  const int band_cells = rows / g.sub_h * g.n_win;
+  const int words = (n_inst + 31) >> 5;
+  for (int i = threadIdx.x; i < band_cells * words; i += kBlock) {
+    s_bits[i] = 0;
+  }
+  __syncthreads();
+  // (a) bit inst of cell c for every live (item, c) of this supertile
+  for (int j = threadIdx.x; j < n_items; j += kBlock) {
+    const int inst = items[2 * j];
+    if (inst < 0 || inst >= n_inst || items[2 * j + 1] != st) continue;
+    const unsigned char* lv = live + (size_t)j * g.n_cell + cell0;
+    for (int c = 0; c < band_cells; ++c) {
+      if (lv[c]) {
+        atomicOr(&s_bits[c * words + (inst >> 5)], 1u << (inst & 31));
+      }
+    }
+  }
+  __syncthreads();
+  // (b) every pixel of the band once, kBatch id loads in flight a thread
+  const int n_px = rows * g.tile;
+  for (int j0 = threadIdx.x; j0 < n_px; j0 += kBatch * kBlock) {
+    int gid[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int j = j0 + b * kBlock;
+      const int yl = div_by(j, g.tile_d);
+      const int x = tx0 + j - yl * g.tile;
+      const int y = y0 + yl;
+      gid[b] = -2;  // outside the band or the frame: no pixel
+      if (j < n_px && x < width && y < height) {
+        gid[b] = id[(size_t)y * width + x];
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (gid[b] == -2) continue;
+      const int j = j0 + b * kBlock;
+      const int yl = div_by(j, g.tile_d);
+      const int xl = j - yl * g.tile;
+      const int x = tx0 + xl;
+      const int y = y0 + yl;
+      float out[kAttrs];
+      bool write = false;
+      if (gid[b] >= 0) {
+        const int inst = div_by(gid[b], tris);
+        const int c = div_by(yl, g.sub_d) * g.n_win + div_by(xl, g.win_d);
+        write = inst < n_inst &&
+                (s_bits[c * words + (inst >> 5)] >> (inst & 31)) & 1u;
+      }
+      if (write) {
+        float cf[kCoefStride];
+        load_coef(coef, (unsigned int)gid[b], n_floats, vec, cf);
+        winner_attrs(cf, x, y, out);
+      } else {
+#pragma unroll
+        for (int a = 0; a < kAttrs; ++a) out[a] = 0.0f;
+      }
+      float4* dst = reinterpret_cast<float4*>(
+          attrs + ((size_t)y * width + x) * kAttrs);
+      dst[0] = make_float4(out[0], out[1], out[2], out[3]);
+      dst[1] = make_float4(out[4], out[5], out[6], out[7]);
     }
   }
 }
 
-int pixel_blocks(int num_pixels) { return (num_pixels + kBlock - 1) / kBlock; }
+constexpr int kFilterBlock = 1024;
+
+// The winner filter: blocks 0 .. n_st - 1 one supertile each, block n_st
+// the unused slots. Dynamic shared memory: n_cell minima, n_cell maxima.
+// `group` lanes (a power of two dividing win_w, at most 32) hold pixels of
+// one cell.
+__global__ void __launch_bounds__(kFilterBlock)
+filter_kernel(const int* __restrict__ items, int n_items,
+              const int* __restrict__ id, Div tris, int tiles_x, int n_st,
+              Cells g, int group, int width, int height,
+              int* __restrict__ items_out, unsigned char* __restrict__ live) {
+  extern __shared__ int s_range[];
+  int* s_mn = s_range;
+  int* s_mx = s_range + g.n_cell;
+  const int st = blockIdx.x;
+  if (st == n_st) {
+    for (int j = threadIdx.x; j < n_items; j += kFilterBlock) {
+      const int s = items[2 * j + 1];
+      if (items[2 * j] >= 0 && s >= 0 && s < n_st) continue;
+      items_out[2 * j] = -1;
+      items_out[2 * j + 1] = -1;
+      for (int c = 0; c < g.n_cell; ++c) {
+        live[(size_t)j * g.n_cell + c] = 0;
+      }
+    }
+    return;
+  }
+  for (int c = threadIdx.x; c < g.n_cell; c += kFilterBlock) {
+    s_mn[c] = 1 << 30;
+    s_mx[c] = -1;
+  }
+  __syncthreads();
+  const int tx0 = st % tiles_x * g.tile;
+  const int ty0 = st / tiles_x * g.tile;
+  const int n_px = g.tile * g.tile;
+  const int lane = threadIdx.x & 31;
+  // every lane runs every round (the shuffles need the whole warp)
+  for (int base = 0; base < n_px; base += kBatch * kFilterBlock) {
+    int gid[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int j = base + b * kFilterBlock + threadIdx.x;
+      const int yl = div_by(j, g.tile_d);
+      const int x = tx0 + j - yl * g.tile;
+      const int y = ty0 + yl;
+      gid[b] = -1;  // outside the tile or the frame: background
+      if (j < n_px && x < width && y < height) {
+        gid[b] = id[(size_t)y * width + x];
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int j = base + b * kFilterBlock + threadIdx.x;
+      int mn = 1 << 30, mx = -1;
+      if (gid[b] >= 0) mn = mx = div_by(gid[b], tris);
+      for (int o = 1; o < group; o <<= 1) {
+        mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+        mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      }
+      if (lane % group == 0 && mx >= 0) {
+        const int yl = div_by(j, g.tile_d);
+        const int c =
+            div_by(yl, g.sub_d) * g.n_win + div_by(j - yl * g.tile, g.win_d);
+        atomicMin(&s_mn[c], mn);
+        atomicMax(&s_mx[c], mx);
+      }
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < n_items; j += kFilterBlock) {
+    const int inst = items[2 * j];
+    if (inst < 0 || items[2 * j + 1] != st) continue;
+    bool any = false;
+    for (int c = 0; c < g.n_cell; ++c) {
+      const bool l = s_mn[c] <= inst && inst <= s_mx[c];
+      live[(size_t)j * g.n_cell + c] = l;
+      any = any || l;
+    }
+    items_out[2 * j] = any ? inst : -1;
+    items_out[2 * j + 1] = any ? st : -1;
+  }
+}
+
+// Lets a kernel take `smem` bytes of dynamic shared memory beside its
+// static shared memory (above 48 KB in all only with this attribute).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
 
 }  // namespace
 
@@ -621,25 +858,64 @@ extern "C" int vrt_raster_zid(const float* vis, const int* items, int n_items,
                               static_cast<cudaStream_t>(stream));
 }
 
-// Winner attributes (B3b): id (height, width) int32 from vrt_raster_zid;
-// live (n_items, n_cell) bytes, cell c of a supertile being the sub_h x
-// win_w block at row c / (tile / win_w), column c % (tile / win_w); attrs
-// (height, width, 8) is the output.
+// Winner attributes (B3b): coef (n_inst, tris_per_inst, 27); id (height,
+// width) int32 from vrt_raster_zid; items (n_items, 2) and live (n_items,
+// n_cell) bytes from vrt_filter_winners, cell c of a supertile being the
+// sub_h x win_w block at row c / (tile / win_w), column c % (tile / win_w);
+// attrs (height, width, 8) is the output. `rows`, a multiple of sub_h
+// dividing tile, is the band one block takes. n_inst is at most kMaxInst.
 extern "C" int vrt_raster_resolve(const float* coef, const int* items,
                                   const unsigned char* live, int n_items,
-                                  int n_cell, int tris_per_inst, int tiles_x,
-                                  int tile, int sub_h, int win_w, int width,
-                                  int height, const int* id, float* attrs,
-                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int num_pixels = width * height;
-  zero_background_attrs_kernel<<<pixel_blocks(num_pixels), kBlock, 0, s>>>(
-      id, num_pixels, attrs);
-  if (n_items > 0) {
-    winner_resolve_kernel<<<n_items, kBlock, 0, s>>>(
-        coef, items, live, n_cell, tris_per_inst, tiles_x, tile, sub_h,
-        win_w, width, height, id, attrs);
+                                  int n_inst, int tris_per_inst, int tiles_x,
+                                  int tile, int sub_h, int win_w, int rows,
+                                  int width, int height, const int* id,
+                                  float* attrs, void* stream) {
+  if (!cells_ok(tile, sub_h, win_w) || rows <= 0 || rows % sub_h != 0 ||
+      tile % rows != 0 || n_inst < 0 || n_inst > kMaxInst ||
+      tris_per_inst <= 0 || n_items < 0 || width <= 0 || height <= 0) {
+    return (int)cudaErrorInvalidValue;
   }
+  const Cells g = make_cells(tile, sub_h, win_w);
+  const size_t smem = (size_t)(rows / sub_h * g.n_win) *
+                      ((n_inst + 31) / 32) * sizeof(unsigned int);
+  const cudaError_t e = allow_smem(resolve_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_blocks = tiles_x * ((height + tile - 1) / tile) * (tile / rows);
+  resolve_kernel<<<n_blocks, kBlock, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
+      coef, (unsigned int)(n_inst * tris_per_inst * kCoefStride),
+      reinterpret_cast<uintptr_t>(coef) % 16 == 0, items, live, n_items,
+      n_inst, make_div(tris_per_inst), tiles_x, g, rows, width, height, id,
+      attrs);
+  return (int)cudaGetLastError();
+}
+
+// The winner filter: id (height, width) int32 from vrt_raster_zid, items
+// (n_items, 2); outputs items_out (n_items, 2), the item or (-1, -1)
+// where it has no live cell, and live (n_items, n_cell) bytes, 1 where the
+// item's instance lies in [min, max] of id / tris_per_inst over the cell's
+// covered pixels. Slots with inst < 0 (or a supertile outside the frame)
+// come out unused with no live cell.
+extern "C" int vrt_filter_winners(const int* items, int n_items,
+                                  const int* id, int tris_per_inst,
+                                  int tiles_x, int tile, int sub_h, int win_w,
+                                  int width, int height, int* items_out,
+                                  unsigned char* live, void* stream) {
+  if (!cells_ok(tile, sub_h, win_w) || tris_per_inst <= 0 || n_items < 0 ||
+      width <= 0 || height <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Cells g = make_cells(tile, sub_h, win_w);
+  int group = 1;
+  while (group < 32 && win_w % (2 * group) == 0) group *= 2;
+  const size_t smem = 2 * (size_t)g.n_cell * sizeof(int);
+  const cudaError_t e = allow_smem(filter_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_st = tiles_x * ((height + tile - 1) / tile);
+  filter_kernel<<<n_st + 1, kFilterBlock, smem,
+                  static_cast<cudaStream_t>(stream)>>>(
+      items, n_items, id, make_div(tris_per_inst), tiles_x, n_st, g, group,
+      width, height, items_out, live);
   return (int)cudaGetLastError();
 }
 

@@ -94,10 +94,12 @@ def load() -> ctypes.CDLL:
         lib.vrt_raster_zid.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, p,
                                        p]
         lib.vrt_raster_resolve.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
-                                           i, p, p, p]
+                                           i, i, p, p, p]
+        lib.vrt_filter_winners.argtypes = [p, i, p, i, i, i, i, i, i, i, p,
+                                           p, p]
         lib.vrt_raster_depth.argtypes = [p, p, i, i, i, i, i, i, i, i, p, p]
         for fn in (lib.vrt_raster, lib.vrt_raster_zid, lib.vrt_raster_resolve,
-                   lib.vrt_raster_depth):
+                   lib.vrt_filter_winners, lib.vrt_raster_depth):
             fn.restype = i
         _loaded = lib
     return _loaded

@@ -34,12 +34,15 @@ evaluate:
   ``rasterize_two_phase``: ``rasterize_zid``, kernel B3a
   (``vrt_raster_zid``, replacing ``_raster_kernel(depth_only, with_id)``
   via ``rasterize_pallas_zid``), rasters z and the winner id, bit-identical
-  to ``rasterize``'s; ``filter_work_to_winners`` (plain PyTorch, as in the
-  JAX package) keeps the (work item, cell) pairs whose instance may have
-  won a pixel of the cell; ``rasterize_resolve``, kernel B3b
+  to ``rasterize``'s; ``filter_work_to_winners`` (kernel
+  ``vrt_filter_winners``, one launch for the JAX package's plain-JAX
+  filter) keeps the (work item, cell) pairs whose instance may have won a
+  pixel of the cell; ``rasterize_resolve``, kernel B3b
   (``vrt_raster_resolve``, replacing ``_resolve_kernel`` via
-  ``rasterize_pallas_resolve``), evaluates the winners' attributes over
-  the live pairs, bit-identical to ``rasterize``'s.
+  ``rasterize_pallas_resolve``), evaluates the winners' attributes where
+  their item is live at the pixel's cell, bit-identical to
+  ``rasterize``'s. Both take each pixel once, one block per supertile (the
+  filter) or per band of rows of one (B3b).
 
 The work list keeps the JAX package's count (one leading dummy per
 supertile plus every overlapping (usable instance, supertile) pair, so
@@ -71,6 +74,10 @@ _KEY_EMPTY = torch.iinfo(torch.int64).max
 # the 227 KB a block may hold on the H100 (less the static part)
 _SMEM_BYTES = 232448 - 64
 _LISTS_BYTES = 2 * 1024 * 4
+# B3b's per-cell instance bitmap: bench.py's envelope has 4096 terrain
+# slots, plus the scene's block slots
+MAX_RESOLVE_INSTANCES = 8192
+RESOLVE_ROWS = 16  # pixel rows of a supertile one B3b block takes
 
 
 class PackedTris(NamedTuple):
@@ -339,43 +346,55 @@ def _cell_grid(tile: int, sub_h: int, win_w: int):
     return tile // sub_h, tile // win_w
 
 
+def _resolve_band(tile: int, sub_h: int) -> int:
+    """The pixel rows of a supertile one B3b block takes: RESOLVE_ROWS
+    where it is a multiple of ``sub_h`` dividing the tile, else one cell
+    row."""
+    if RESOLVE_ROWS % sub_h == 0 and tile % RESOLVE_ROWS == 0:
+        return RESOLVE_ROWS
+    return sub_h
+
+
+def _check_two_phase(device: torch.device, *expect):
+    """Each (tensor, shape, dtype) of ``expect`` lies contiguous on
+    ``device`` with that shape and dtype."""
+    for x, shape, dtype in expect:
+        if (x.device != device or tuple(x.shape) != shape
+                or x.dtype != dtype or not x.is_contiguous()):
+            raise ValueError(f"two-phase input {tuple(x.shape)} {x.dtype} on "
+                             f"{x.device}, expected contiguous {shape} "
+                             f"{dtype} on {device}")
+
+
 def filter_work_to_winners(work: WorkList, ids: torch.Tensor,
                            tris_per_inst: int, width: int, height: int,
                            tile: int = TILE, sub_h: int = 16,
                            win_w: int = 128):
-    """Two-phase: which (work item, cell) pairs may own a phase-1 winner.
-
-    Cells are the sub_h x win_w pixel blocks of each supertile, row-major
-    (cell c at block row c // (tile // win_w)). Per cell, the winners'
-    instances ``id // T`` span [min, max]; a pair is live iff the item's
-    instance lies in that range, the JAX package's conservative rule
-    (``raster_pallas.filter_work_to_winners``): every winner's own item
-    stays live. ``ids`` is the cropped (H, W) id image, -1 background; the
-    padding to supertile multiples is background, so a cell wholly outside
-    the frame is never live. Returns the work list with items that have no
-    live cell marked unused (-1, -1), ``num_items`` unchanged, and the
-    (max_work, n_cell) bool live mask. No host synchronisation."""
+    """Two-phase: which (work item, cell) pairs may own a phase-1 winner
+    (the rule: ``filter_work_to_winners_plain``). Returns the work list
+    with items that have no live cell marked unused (-1, -1),
+    ``num_items`` unchanged, and the (max_work, n_cell) bool live mask.
+    CUDA tensors launch the kernel ``vrt_filter_winners`` (one launch, no
+    host synchronisation), CPU tensors run the plain version."""
     n_sub, n_win = _cell_grid(tile, sub_h, win_w)
-    tiles_x, n_st = _tiles(width, height, tile)
-    pad = torch.full((n_st // tiles_x * tile, tiles_x * tile), -1,
-                     dtype=ids.dtype, device=ids.device)
-    pad[:height, :width] = ids
-    bg = pad < 0
-    inst = torch.div(pad, tris_per_inst, rounding_mode="floor")
-    blocks = (pad.shape[0] // sub_h, sub_h, pad.shape[1] // win_w, win_w)
-    mn = torch.where(bg, 2 ** 30, inst).reshape(blocks).amin(dim=(1, 3))
-    mx = torch.where(bg, -1, inst).reshape(blocks).amax(dim=(1, 3))
-
-    item_inst = work.items[:, 0:1].long()
-    st = work.items[:, 1:2].long().clamp(min=0)
-    c = torch.arange(n_sub * n_win, device=ids.device)[None, :]
-    rows = (st // tiles_x) * n_sub + c // n_win
-    cols = (st % tiles_x) * n_win + c % n_win
-    live = ((mn[rows, cols] <= item_inst) & (item_inst <= mx[rows, cols])
-            & (item_inst >= 0))
-    items = torch.where(live.any(dim=1, keepdim=True), work.items,
-                        torch.full_like(work.items, -1))
+    device = ids.device
+    n = work.items.shape[0]
+    _check_two_phase(device, (work.items, (n, 2), torch.int32),
+                     (ids, (height, width), torch.int32))
+    if device.type == "cpu":
+        return filter_work_to_winners_plain(work, ids, tris_per_inst, width,
+                                            height, tile, sub_h, win_w)
+    items = torch.empty_like(work.items)
+    live = torch.empty((n, n_sub * n_win), dtype=torch.bool, device=device)
+    tiles_x, _ = _tiles(width, height, tile)
+    _launch("vrt_filter_winners", device, work.items.data_ptr(), n,
+            ids.data_ptr(), tris_per_inst, tiles_x, tile, sub_h, win_w, width,
+            height, items.data_ptr(), live.data_ptr())
+    filter_work_to_winners.launches += 1
     return WorkList(items=items, num_items=work.num_items), live
+
+
+filter_work_to_winners.launches = 0
 
 
 def rasterize_resolve(packed: PackedTris, work: WorkList, live: torch.Tensor,
@@ -383,20 +402,20 @@ def rasterize_resolve(packed: PackedTris, work: WorkList, live: torch.Tensor,
                       tile: int = TILE, sub_h: int = 16, win_w: int = 128
                       ) -> torch.Tensor:
     """Two-phase phase 2: attrs (H, W, 8) of the winners ``ids`` (from
-    ``rasterize_zid``) over the live (item, cell) pairs of
-    ``filter_work_to_winners``, 0 on the background. CUDA tensors launch
-    kernel B3b, CPU tensors run ``rasterize_resolve_plain``."""
+    ``rasterize_zid``) where their item is live at the pixel's cell (the
+    rule: ``rasterize_resolve_plain``), 0 elsewhere. CUDA tensors launch
+    kernel B3b, CPU tensors run ``rasterize_resolve_plain``. Raises for
+    more than MAX_RESOLVE_INSTANCES instance slots on every device."""
     device = packed.vis.device
     _check(packed.vis, packed.coef, work)
     n_sub, n_win = _cell_grid(tile, sub_h, win_w)
-    for x, shape, dtype in ((live, (work.items.shape[0], n_sub * n_win),
-                             torch.bool),
-                            (ids, (height, width), torch.int32)):
-        if (x.device != device or tuple(x.shape) != shape
-                or x.dtype != dtype or not x.is_contiguous()):
-            raise ValueError(f"resolve input {tuple(x.shape)} {x.dtype} on "
-                             f"{x.device}, expected contiguous {shape} "
-                             f"{dtype} on {device}")
+    _check_two_phase(device, (live, (work.items.shape[0], n_sub * n_win),
+                              torch.bool),
+                     (ids, (height, width), torch.int32))
+    I, T = packed.coef.shape[0], packed.coef.shape[1]
+    if I > MAX_RESOLVE_INSTANCES:
+        raise ValueError(f"{I} instance slots: the resolve takes at most "
+                         f"{MAX_RESOLVE_INSTANCES}")
     if device.type == "cpu":
         return rasterize_resolve_plain(packed, work, live, ids, width, height,
                                        tile, sub_h, win_w)
@@ -404,9 +423,9 @@ def rasterize_resolve(packed: PackedTris, work: WorkList, live: torch.Tensor,
                         device=device)
     tiles_x, _ = _tiles(width, height, tile)
     _launch("vrt_raster_resolve", device, packed.coef.data_ptr(),
-            work.items.data_ptr(), live.data_ptr(), work.items.shape[0],
-            n_sub * n_win, packed.vis.shape[1], tiles_x, tile, sub_h, win_w,
-            width, height, ids.data_ptr(), attrs.data_ptr())
+            work.items.data_ptr(), live.data_ptr(), work.items.shape[0], I, T,
+            tiles_x, tile, sub_h, win_w, _resolve_band(tile, sub_h), width,
+            height, ids.data_ptr(), attrs.data_ptr())
     rasterize_resolve.launches += 1
     return attrs
 
@@ -704,33 +723,68 @@ def rasterize_zid_plain(packed: PackedTris, work: WorkList, width: int,
     return _decode_plain(keys, width, height, reverse_z)
 
 
+def filter_work_to_winners_plain(work: WorkList, ids: torch.Tensor,
+                                 tris_per_inst: int, width: int, height: int,
+                                 tile: int = TILE, sub_h: int = 16,
+                                 win_w: int = 128):
+    """Plain PyTorch version of the filter kernel. Cells are the sub_h x
+    win_w pixel blocks of each supertile, row-major (cell c at block row c
+    // (tile // win_w)). Per cell, the winners' instances ``id // T`` span
+    [min, max]; a pair is live iff the item's instance lies in that range,
+    the JAX package's conservative rule
+    (``raster_pallas.filter_work_to_winners``): every winner's own item
+    stays live. ``ids`` is the cropped (H, W) id image, -1 background; the
+    padding to supertile multiples is background, so a cell wholly outside
+    the frame is never live. No host synchronisation."""
+    n_sub, n_win = _cell_grid(tile, sub_h, win_w)
+    tiles_x, n_st = _tiles(width, height, tile)
+    pad = torch.full((n_st // tiles_x * tile, tiles_x * tile), -1,
+                     dtype=ids.dtype, device=ids.device)
+    pad[:height, :width] = ids
+    bg = pad < 0
+    inst = torch.div(pad, tris_per_inst, rounding_mode="floor")
+    blocks = (pad.shape[0] // sub_h, sub_h, pad.shape[1] // win_w, win_w)
+    mn = torch.where(bg, 2 ** 30, inst).reshape(blocks).amin(dim=(1, 3))
+    mx = torch.where(bg, -1, inst).reshape(blocks).amax(dim=(1, 3))
+
+    item_inst = work.items[:, 0:1].long()
+    st = work.items[:, 1:2].long().clamp(min=0)
+    c = torch.arange(n_sub * n_win, device=ids.device)[None, :]
+    rows = (st // tiles_x) * n_sub + c // n_win
+    cols = (st % tiles_x) * n_win + c % n_win
+    live = ((mn[rows, cols] <= item_inst) & (item_inst <= mx[rows, cols])
+            & (item_inst >= 0))
+    items = torch.where(live.any(dim=1, keepdim=True), work.items,
+                        torch.full_like(work.items, -1))
+    return WorkList(items=items, num_items=work.num_items), live
+
+
 def rasterize_resolve_plain(packed: PackedTris, work: WorkList,
                             live: torch.Tensor, ids: torch.Tensor,
                             width: int, height: int, tile: int = TILE,
                             sub_h: int = 16, win_w: int = 128
                             ) -> torch.Tensor:
     """Plain PyTorch version of kernel B3b: a covered pixel gets its
-    winner's attributes iff the work item (winner's instance, pixel's
-    supertile) is in ``work`` and live at the pixel's cell, else 0."""
+    winner's attributes iff some slot of ``work`` holds the item (winner's
+    instance, pixel's supertile) with its ``live`` byte set at the pixel's
+    cell (any live copy, for an item listed twice), else 0."""
     dev = ids.device
     I, T = packed.coef.shape[0], packed.coef.shape[1]
     n_sub, n_win = _cell_grid(tile, sub_h, win_w)
     tiles_x, n_st = _tiles(width, height, tile)
-    # slot of each (instance, supertile) item; unused slots scatter to a
-    # spare entry that nothing reads
+    # live cells of each (instance, supertile), summed over its slots;
+    # unused slots add to a spare row that nothing reads
     inst_w, st_w = work.items[:, 0].long(), work.items[:, 1].long()
-    used = inst_w >= 0
-    slot_of = torch.full((I * n_st + 1,), -1, dtype=torch.long, device=dev)
-    slot_of.scatter_(0, torch.where(used, inst_w * n_st + st_w, I * n_st),
-                     torch.arange(work.items.shape[0], device=dev))
+    key = torch.where(inst_w >= 0, inst_w * n_st + st_w, I * n_st)
+    won = torch.zeros((I * n_st + 1, n_sub * n_win), dtype=torch.int32,
+                      device=dev).index_add_(0, key, live.to(torch.int32))
     y = torch.arange(height, device=dev)[:, None]
     x = torch.arange(width, device=dev)[None, :]
     st = (y // tile) * tiles_x + x // tile
     cell = ((y % tile) // sub_h) * n_win + (x % tile) // win_w
     covered = ids >= 0
     inst = torch.where(covered, ids.long() // T, torch.zeros_like(st))
-    slot = slot_of[inst * n_st + st]
-    write = covered & (slot >= 0) & live[slot.clamp(min=0), cell]
+    write = covered & (won[inst * n_st + st, cell] > 0)
     return _attrs_plain(packed.coef, ids, write)
 
 
