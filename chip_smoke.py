@@ -58,7 +58,23 @@ Phases, each printing one line and raising on failure:
 11. cached map variant (bench.py --mode mapcache: light-eye selection and
     the cached prepass): 8 cameras bit-identical to inline frames, one
     light raster for the cached loop, ``render_shadow_depth`` equal to the
-    cached map.
+    cached map;
+12. app path (run after phase 6): the port's own entry point,
+    ``App.run_flythrough`` at 1920x1152 with the boot cube (what
+    ``python -m vrenderer_tpu_torch.capture`` runs). Run 1, 4 frames with
+    PNG dumps and a chrome trace: each PNG read back through ``load_png``
+    equals the frame quantized to 8 bits, the trace holds the Render, Wait
+    GPU, Present and CPU Frame scopes, the native event ring is filled.
+    Run 2, 64 adapting frames: the luminance history finite, away from
+    0.5, and equal to a hand-threaded ``render_adaptive`` chain; 64 B1
+    launches. Run 3, 64 frames without adaptation, each bit-identical to
+    ``Renderer.render``. The App's frame times and "Wait GPU" share; a
+    ``passes`` JSON line of ``App.profile_passes`` at camera 13 in horizon
+    mode and in map mode (phase 10's configuration); a ``torch.profiler``
+    device trace of 2 frames (device kernels and busy ms per frame, the
+    busy share of the frames' CUDA-event time, the top kernels); then an
+    App on the native 1024x1024 heightmap. Every App frame finite, covered
+    in (0, 1) and without overflow. Each part prints its seconds.
 
 Each path's kernel launches are counted from 0 just before it runs. Then
 one JSON line with each kernel's launches (on its path: B1 and B2 on the
@@ -103,6 +119,10 @@ LAYOUTS = ((64, 1), (64, 2), (64, 4), (64, 8), (64, 16), (128, 1),
            (128, 4))
 JSON_CAMERA = 13                    # the heavy grazing view
 CACHED_CAMERAS = 8
+APP_FRAMES = 64                     # the App's adapting and fixed runs
+APP_DUMP_FRAMES = 4                 # the App's run with PNGs and a trace
+APP_DT = 1.0 / 60.0                 # run_flythrough's adaptation step
+TRACE_CAMERAS = (0, 13)             # the frames of the device trace
 MODE_CAMERAS = (0, 13, 32)          # frames of the reverse-z and wire modes
 ATTR_TOL = 1e-5   # kernel and plain round every plane op the same way
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s and
@@ -839,6 +859,270 @@ def phase_map_cached(device, params, cams) -> None:
         f"render_shadow_depth equals the cached map")
 
 
+def frame_stats(outs, name: str) -> str:
+    """Every frame finite, covered in (0, 1) and without overflow (at the
+    App's own budgets, max_active = max_instances)."""
+    import torch
+
+    st = torch.stack([torch.stack([
+        torch.isfinite(o.ldr).all().float(),
+        torch.isfinite(o.hdr).all().float(),
+        (o.prim_id >= 0).float().mean(), o.overflow_mask.float()])
+        for o in outs]).cpu().numpy()
+    for i, (fin_l, fin_h, cov, mask) in enumerate(st):
+        if not (fin_l == 1 and fin_h == 1 and 0.0 < cov < 1.0 and mask == 0):
+            raise RuntimeError(f"{name} frame {i}: finite ldr/hdr "
+                               f"{bool(fin_l)}/{bool(fin_h)}, coverage {cov}, "
+                               f"overflow mask {int(mask)}")
+    return (f"{len(outs)} frames finite, no overflow, coverage "
+            f"{st[:, 2].min():.4f}-{st[:, 2].max():.4f}")
+
+
+def app_run(app, name: str, **kw):
+    """``app.run_flythrough(**kw)`` with the kernel launches counted from 0
+    and its host times: (outputs, launches, seconds, frame ms of the loop's
+    frames, the "Wait GPU" share of the run's host time)."""
+    import torch
+
+    reset_launches()
+    n_ev = len(app.profiler.native_events())
+    t0 = time.perf_counter()
+    outs = app.run_flythrough(**kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launched = read_launches()
+    frame_ms = app.profiler.frame_times_ms[-kw["num_frames"] - 1:-1]
+    evs = app.profiler.native_events()[n_ev:]
+    wait = sum(e["end_ns"] - e["begin_ns"] for e in evs
+               if e["name"] == "Wait GPU") * 1e-6
+    total = sum(app.profiler.frame_times_ms[-kw["num_frames"] - 1:])
+    if launched["raster"] == 0:
+        raise RuntimeError(f"{name}: kernel B1 was not launched")
+    return outs, launched, sec, frame_ms, wait / total
+
+
+def device_trace(app, cams, prepass) -> dict:
+    """A ``torch.profiler`` trace of the App's adapting frame at
+    TRACE_CAMERAS: device kernels and busy ms (the union of kernel, copy
+    and set intervals) per frame, the busy share of the frames' CUDA-event
+    time with and without the profiler, and the ten kernels with the most
+    device time."""
+    import tempfile
+
+    import torch
+
+    from vrenderer_tpu_torch.profiler import (
+        start_device_trace, stop_device_trace,
+    )
+
+    r, params = app.renderer, app.params
+    lum = torch.tensor(0.5, device=app.device)
+
+    def frames():
+        ms = []
+        for i in TRACE_CAMERAS:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            r.render_adaptive(cams.frame(i), params, lum, APP_DT,
+                              shadow_prepass=prepass)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        return ms
+
+    frames()
+    plain_ms = frames()
+    with tempfile.TemporaryDirectory() as tmp:
+        start_device_trace(tmp)
+        traced_ms = frames()
+        stop_device_trace()
+        with open(Path(tmp) / "trace.json") as fh:
+            events = json.load(fh)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in dev if e["cat"] == "kernel"]
+    if not kernels:
+        raise RuntimeError("the device trace holds no kernel")
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in dev)
+    busy, end = 0.0, -float("inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    n = len(TRACE_CAMERAS)
+    by_name = Counter()
+    for e in kernels:
+        by_name[e["name"]] += float(e["dur"])
+    busy_ms = busy * 1e-3 / n
+    return {
+        "frames": list(TRACE_CAMERAS),
+        "kernels_per_frame": len(kernels) / n,
+        "copies_sets_per_frame": (len(dev) - len(kernels)) / n,
+        "busy_ms_per_frame": busy_ms,
+        "frame_ms": plain_ms, "frame_ms_traced": traced_ms,
+        "busy_share": busy_ms / float(np.mean(plain_ms)),
+        "busy_share_traced": busy_ms / float(np.mean(traced_ms)),
+        "top_kernels_ms_per_frame": [
+            [k[:120], v * 1e-3 / n] for k, v in by_name.most_common(10)],
+    }
+
+
+def phase_app(device, card: str) -> None:
+    """Phase 12 (module docstring)."""
+    import tempfile
+
+    import torch
+
+    from vrenderer_tpu_torch.app import App
+    from vrenderer_tpu_torch.camera import flythrough
+    from vrenderer_tpu_torch.config import FrameConfig, TerrainSettings
+    from vrenderer_tpu_torch.models.scene import Scene
+    from vrenderer_tpu_torch.renderer import Renderer
+    from vrenderer_tpu_torch.terrain.heightmap import load_png
+
+    t0 = time.perf_counter()
+    cfg = FrameConfig(width=WIDTH, height=HEIGHT,
+                      terrain=TerrainSettings(max_instances=1024))
+    app = App(cfg, scene=Scene.default(device), device=device)
+    r = app.renderer
+
+    # run 1: PNGs, trace, native ring (and the warm-up of runs 2 and 3)
+    with tempfile.TemporaryDirectory() as tmp:
+        outs, launched, sec, _, _ = app_run(
+            app, "app run 1", num_frames=APP_DUMP_FRAMES, dump_dir=tmp,
+            trace_path=f"{tmp}/trace.json")
+        for i, o in enumerate(outs):
+            ldr = o.ldr.cpu().numpy()
+            want = ((np.clip(ldr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+                    .astype(np.float32) / np.float32(255.0))
+            got = load_png(f"{tmp}/frame_{i:04d}.png").numpy()
+            if not np.array_equal(got, want):
+                raise RuntimeError(f"app frame {i}: the PNG read back "
+                                   f"differs from the 8-bit frame")
+        with open(f"{tmp}/trace.json") as fh:
+            names = {e["name"] for e in json.load(fh)["traceEvents"]}
+    scopes = {"Render", "Wait GPU", "Present", "CPU Frame"}
+    if not scopes <= names:
+        raise RuntimeError(f"the chrome trace lacks {scopes - names}")
+    n_native = len(app.profiler.native_events())
+    if n_native == 0:
+        raise RuntimeError("the native event ring is empty")
+    log(f"app run 1: {frame_stats(outs, 'app run 1')}; {len(outs)} PNGs "
+        f"read back through load_png equal to the 8-bit frames; chrome "
+        f"trace scopes {sorted(names)}; {n_native} native events; launches "
+        f"{launched}; {sec:.1f} s")
+    del outs
+
+    # run 2: adapting, against a hand-threaded render_adaptive chain
+    t1 = time.perf_counter()
+    outs, launched, sec, ms2, wait2 = app_run(app, "app run 2",
+                                              num_frames=APP_FRAMES)
+    stats2 = frame_stats(outs, "app run 2")
+    del outs
+    hist = np.asarray(app.adapt_history)
+    if launched != launches(raster=APP_FRAMES):
+        raise RuntimeError(f"app run 2 launches {launched}")
+    if not (hist.shape == (APP_FRAMES,) and np.isfinite(hist).all()
+            and abs(hist[-1] - 0.5) > 1e-3):
+        raise RuntimeError(f"adapt_history {hist}")
+    cams = flythrough(APP_FRAMES, world_size=cfg.terrain.world_size,
+                      heightmap=app.heightmap,
+                      max_height=float(app.params.max_height))
+    prepass = r.cached_horizon_prepass(app.params)
+    lum, chain = 0.5, []
+    for i in range(APP_FRAMES):
+        _, lum = r.render_adaptive(cams.frame(i), app.params, lum, APP_DT,
+                                   shadow_prepass=prepass)
+        chain.append(lum)
+    chain = torch.stack(chain).cpu().numpy()
+    rel = float(np.max(np.abs(chain - hist) / np.abs(hist)))
+    if not np.allclose(hist, chain, rtol=1e-6, atol=0.0):
+        raise RuntimeError(f"adapt_history differs from the hand-threaded "
+                           f"chain by {rel} (relative)")
+    log(f"app run 2 (adapting): {stats2}; adapt_history "
+        f"{hist[0]:.6f} -> {hist[-1]:.6f}, equal to the hand-threaded "
+        f"render_adaptive chain (max rel diff {rel:.3g}); launches "
+        f"{launched}; frame ms ({card}, host wall) mean "
+        f"{np.mean(ms2):.3f} p50 {np.median(ms2):.3f} max {np.max(ms2):.3f}, "
+        f"Wait GPU share {wait2:.4f}; {time.perf_counter() - t1:.1f} s")
+
+    # run 3: no adaptation, bit-identical to Renderer.render
+    t1 = time.perf_counter()
+    outs, launched, sec, ms3, wait3 = app_run(app, "app run 3",
+                                              num_frames=APP_FRAMES,
+                                              adapt=False)
+    if launched != launches(raster=APP_FRAMES):
+        raise RuntimeError(f"app run 3 launches {launched}")
+    for i, o in enumerate(outs):
+        ref = r.render(cams.frame(i), app.params, shadow_prepass=prepass)
+        for f in ("ldr", "depth", "prim_id", "overflow_mask"):
+            if not torch.equal(getattr(o, f), getattr(ref, f)):
+                raise RuntimeError(f"app run 3 frame {i}: {f} differs from "
+                                   f"Renderer.render")
+    stats3 = frame_stats(outs, "app run 3")
+    del outs
+    log(f"app run 3 (adapt=False): {stats3}; each bit-identical to "
+        f"Renderer.render (ldr, depth, prim_id, overflow_mask); launches "
+        f"{launched}; frame ms ({card}, host wall) mean {np.mean(ms3):.3f} "
+        f"p50 {np.median(ms3):.3f} max {np.max(ms3):.3f}, Wait GPU share "
+        f"{wait3:.4f}; {time.perf_counter() - t1:.1f} s")
+
+    # per-pass times, horizon and map mode (phase 10's budgets)
+    t1 = time.perf_counter()
+    passes = {"horizon": dict(app.profile_passes(cams.frame(JSON_CAMERA))
+                              .results)}
+    cfg_map = FrameConfig(width=WIDTH, height=HEIGHT,
+                          terrain=TerrainSettings(max_instances=1024),
+                          shadow_mode="map", shadow_resolution=SHADOW_RES)
+    app_map = App(cfg_map, scene=Scene.default(device), device=device)
+    app_map.renderer = Renderer(cfg_map, app_map.heightmap, app_map.albedo,
+                                max_work=MAX_WORK, max_active=MAP_MAX_ACTIVE,
+                                scene=Scene.default(device), device=device)
+    passes["map"] = dict(app_map.profile_passes(cams.frame(JSON_CAMERA))
+                         .results)
+    del app_map
+    common = {"TerrainPass::UpdateTransforms", "Scene Refresh",
+              "GBuffer fill", "Terrain", "Deferred Lighting", "ToneMapping",
+              "Sky", "GPU Frame"}
+    for mode, extra in (("horizon", {"Terrain Shadow"}),
+                        ("map", {"ShadowMap", "Cascade ShadowMap"})):
+        if set(passes[mode]) != common | extra or not all(
+                v > 0 for v in passes[mode].values()):
+            raise RuntimeError(f"{mode} passes {passes[mode]}")
+    print(json.dumps({"passes": passes, "camera": JSON_CAMERA,
+                      "device": card}))
+    log(f"app passes (camera {JSON_CAMERA}, median of 10 calls, CUDA "
+        f"events): {time.perf_counter() - t1:.1f} s")
+
+    t1 = time.perf_counter()
+    trace = device_trace(app, cams, prepass)
+    log(f"app device trace (camera {TRACE_CAMERAS}, {card}): "
+        f"{trace['kernels_per_frame']:.0f} kernels and "
+        f"{trace['copies_sets_per_frame']:.0f} copies/sets a frame, device "
+        f"busy {trace['busy_ms_per_frame']:.3f} ms a frame, "
+        f"{trace['busy_share']:.4f} of the frame's CUDA-event time "
+        f"({np.mean(trace['frame_ms']):.3f} ms; "
+        f"{trace['busy_share_traced']:.4f} of "
+        f"{np.mean(trace['frame_ms_traced']):.3f} ms under the profiler); "
+        f"top kernels (ms a frame): "
+        + "; ".join(f"{k} {v:.4f}" for k, v in
+                    trace["top_kernels_ms_per_frame"])
+        + f"; {time.perf_counter() - t1:.1f} s")
+    del app
+
+    # the native heightmap path, built at first use
+    t1 = time.perf_counter()
+    app_1k = App(cfg, heightmap_resolution=1024, scene=Scene.default(device),
+                 device=device)
+    outs, launched, _, _, _ = app_run(app_1k, "app 1024", num_frames=2)
+    log(f"app on the 1024x1024 native heightmap: "
+        f"{frame_stats(outs, 'app 1024')}; launches {launched}; "
+        f"{time.perf_counter() - t1:.1f} s (whole app phase "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -885,6 +1169,7 @@ def main() -> int:
         f"{np.median(ms):.3f} ms, max {np.max(ms):.3f} ms over 64 frames "
         f"(CUDA events, 1920x1152)")
     del r
+    phase_app(device, card)
     two_ms, two_launches = phase_two_phase_path(device, params, cams, single)
     log(f"two-phase frame times ({card}): mean {np.mean(two_ms):.3f} ms, "
         f"p50 {np.median(two_ms):.3f} ms, max {np.max(two_ms):.3f} ms over "

@@ -144,7 +144,7 @@ def test_render_launches_no_kernel_on_cpu():
 
 
 def test_unported_paths_raise():
-    """Lock-view, eye adaptation, screen bands and pipeline reload point to
+    """Screen bands, the selection debug view and pipeline reload point to
     ROADMAP.md instead of rendering; every raster setting builds."""
     import dataclasses
 
@@ -156,14 +156,44 @@ def test_unported_paths_raise():
         _port_renderer_cfg(dataclasses.replace(CFG,
                                                raster=RasterSettings(**kw)))
     r = _port_renderer()
-    _, cam = cameras(GOLDEN_EYE, GOLDEN_TARGET)
-    _, params = frame_params_pair()
-    for kw in ({"band": (0, 64)}, {"adapt": 1.0}, {"lock_instances": 1}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            r._frame_impl(cam, params, **kw)
-    for fn in (r.render_adaptive, r.render_locked, r.reload_pipelines):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    cam, params = cameras(GOLDEN_EYE, GOLDEN_TARGET)[1], frame_params_pair()[1]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        r._frame_impl(cam, params, band=(0, 64))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        r.debug_selection(cam)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        r.reload_pipelines()
+
+
+def test_two_phase_slot_cap_raises_at_construction():
+    """The two-phase resolve takes at most MAX_RESOLVE_INSTANCES instance
+    slots (the render budget plus the scene's blocks): a renderer beyond it
+    raises when it is built and names the way out, instead of failing on its
+    first frame; at the cap, and beyond it without two_phase or under
+    wireframe (which ignores two_phase), it builds."""
+    import dataclasses
+
+    import pytest
+
+    from vrenderer_tpu_torch.config import RasterSettings, TerrainSettings
+    from vrenderer_tpu_torch.models.scene import Scene
+
+    cap = raster_cuda.MAX_RESOLVE_INSTANCES
+
+    def cfg(max_instances, **raster_kw):
+        return dataclasses.replace(
+            CFG, raster=RasterSettings(**raster_kw),
+            terrain=TerrainSettings(surface_size=64, world_size=64,
+                                    max_instances=max_instances, grid_size=8))
+
+    with pytest.raises(ValueError, match="two_phase=False") as err:
+        _port_renderer_cfg(cfg(cap + 1, two_phase=True))
+    assert str(cap) in str(err.value)
+    with pytest.raises(ValueError, match="two_phase=False"):
+        _port_renderer_cfg(cfg(cap, two_phase=True), Scene.default())
+    _port_renderer_cfg(cfg(cap, two_phase=True))
+    _port_renderer_cfg(cfg(cap + 1))
+    _port_renderer_cfg(cfg(cap + 1, two_phase=True, wireframe=True))
 
 
 def test_renderer_defaults_to_the_card(monkeypatch):

@@ -69,8 +69,11 @@ class RasterSettings:
     and ``two_phase`` (z + id, then the attributes of the winners only,
     over the ``subtile_h`` x ``win_w`` cells the winner filter keeps;
     ignored under wireframe, as in the JAX package; the frame is
-    bit-identical either way). The remaining fields shape the TPU kernel's
-    VMEM layout and have no meaning here."""
+    bit-identical either way). The two-phase resolve (kernel B3b) takes at
+    most ``raster_cuda.MAX_RESOLVE_INSTANCES`` = 8192 instance slots, the
+    render budget plus the scene's blocks: a ``Renderer`` with more raises
+    when it is built, where ``two_phase=False`` renders. The remaining
+    fields shape the TPU kernel's VMEM layout and have no meaning here."""
 
     tile_h: int = 128
     tile_w: int = 128

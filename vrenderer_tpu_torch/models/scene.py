@@ -2,7 +2,7 @@
 
 ``Scene.default()`` is the boot scene (the Cube.gltf analog, main.cpp:89-95)
 of ``vrenderer_tpu.models.scene``. The glTF/PNG loader is not ported yet
-(ROADMAP.md, A12); ``convert.scene`` builds a Scene from arrays.
+(ROADMAP.md, A14); ``convert.scene`` builds a Scene from arrays.
 """
 
 from __future__ import annotations

@@ -6,6 +6,8 @@ elementwise passes, ported from ``vrenderer_tpu.ops.lighting``.
   (Renderer.cpp:417-428), and a GGX specular lobe at the terrain's
   f0 = 0.01, roughness = 1 (terrain_ps.hlsl:76-79).
 * ``tonemap``: exposure + luminance Reinhard (or ACES / clamp).
+* ``adapt_exposure``: eye adaptation, the exposure scale ``tonemap`` is
+  given when the frame adapts (Renderer.cpp:188-189).
 * ``sky_color``: drawn after tonemapping, as the reference does
   (Renderer.cpp:430-439).
 """
@@ -80,6 +82,35 @@ def tonemap(hdr: torch.Tensor, exposure=1.0, operator: str = "reinhard"
     )
     scale = (lum / (1.0 + lum)) / lum
     return torch.clamp(c * scale[..., None], 0.0, 1.0)
+
+
+def adapt_exposure(hdr: torch.Tensor, covered: torch.Tensor,
+                   adapted_lum: torch.Tensor, dt: float,
+                   speed_up: float = 1.0, speed_down: float = 1.0,
+                   min_lum: float = 0.02, max_lum: float = 4.0,
+                   middle_grey: float = 0.5):
+    """Eye adaptation: (new adapted luminance, exposure scale), both ()
+    tensors on the image's device.
+
+    The reference advances donut's ToneMappingPass every frame
+    (``AdvanceFrame(seconds)``, Renderer.cpp:188-189). As in the JAX
+    package: the geometric mean luminance of the covered pixels (the
+    background excluded), approached exponentially at separate up and down
+    rates over ``dt`` seconds, clamped to [min_lum, max_lum]; the scale is
+    ``middle_grey / new``. Nothing is read back to the host, so the carry
+    can thread through frames in flight. The JAX package's band path sums
+    across devices here (``axis_name``); that path is not ported."""
+    lum = 0.2126 * hdr[..., 0] + 0.7152 * hdr[..., 1] + 0.0722 * hdr[..., 2]
+    logl = torch.log2(torch.clamp(lum, min=1e-6))
+    n_cov = covered.sum(dtype=torch.float32)
+    s_log = torch.where(covered, logl, torch.zeros_like(logl)).sum()
+    target = torch.exp2(s_log / torch.clamp(n_cov, min=1.0))
+    target = torch.clamp(target, min_lum, max_lum)
+    speed = torch.where(target > adapted_lum, speed_up, speed_down)
+    blend = 1.0 - torch.exp(-dt * speed)
+    new_lum = torch.clamp(adapted_lum + (target - adapted_lum) * blend,
+                          min_lum, max_lum)
+    return new_lum, middle_grey / new_lum
 
 
 def srgb_encode(linear: torch.Tensor) -> torch.Tensor:

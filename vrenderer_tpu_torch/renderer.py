@@ -24,8 +24,10 @@ The shadow phase has two modes (``FrameConfig.shadow_mode``):
   from the main eye at full LOD, the main pass reuses its selection and
   geometry, masked to the main frustum's nodes.
 
-Eye adaptation, lock-view, the sharded band path and pipeline reload
-raise NotImplementedError; ROADMAP.md queues them.
+Eye adaptation (``render_adaptive``) and lock-view (``select``,
+``render_locked``) compose with both modes and with a prepass. The sharded
+band path, ``debug_selection`` and pipeline reload raise
+NotImplementedError; ROADMAP.md queues them.
 """
 
 from __future__ import annotations
@@ -170,6 +172,18 @@ class Renderer:
         self._horizon_prepass_cache = None
         self._shadow_prepass_cache = None
         self._prepare_scene(scene)
+        rs = config.raster
+        if rs.two_phase and not rs.wireframe:
+            slots = self.max_active + (0 if self._scene_obj is None
+                                       else self._scene_obj.shape[0])
+            if slots > raster_cuda.MAX_RESOLVE_INSTANCES:
+                raise ValueError(
+                    f"two_phase takes at most "
+                    f"{raster_cuda.MAX_RESOLVE_INSTANCES} instance slots "
+                    f"(raster_cuda.MAX_RESOLVE_INSTANCES); this renderer has "
+                    f"{slots} (max_active {self.max_active} plus scene "
+                    f"blocks): lower max_active or render with "
+                    f"two_phase=False")
 
     def _prepare_scene(self, scene):
         """Chunk scene meshes into object-space raster blocks; per-instance
@@ -326,11 +340,11 @@ class Renderer:
         return setup, sum(p[0].shape[0] for p in parts), work
 
     def _raster_inputs(self, vc: Dict[str, torch.Tensor], params: FrameParams,
-                       sh: _ShadowInputs):
+                       sh: _ShadowInputs, lock_instances=None):
         """Select -> vertex -> setup -> bin: (packed triangles, work list,
         instances). Terrain instances take slots 0..max_active-1 and scene
-        blocks follow. Map mode's shared geometry skips select and
-        vertex."""
+        blocks follow. Map mode's shared geometry skips select and vertex;
+        ``lock_instances`` (lock-view) replaces the selection."""
         cfg = self.config
         ts = cfg.terrain
         dev = self.device
@@ -339,8 +353,10 @@ class Renderer:
             instances, vout = sh.instances, sh.vout
         else:
             lr = ts.lod_ranges(dev)
-            instances = self._clip_active(quadtree.select_all_surfaces(
-                ts, vc["camera_pos"], math3d.frustum_planes(wtc), lr))
+            if lock_instances is None:
+                lock_instances = quadtree.select_all_surfaces(
+                    ts, vc["camera_pos"], math3d.frustum_planes(wtc), lr)
+            instances = self._clip_active(lock_instances)
             vout = vertex.vertex_stage(
                 ts, instances, vc["camera_pos"], self.heightmap, self.albedo,
                 sh.field, params.max_height, lr, nrm_field=self._nrm_field)
@@ -356,11 +372,13 @@ class Renderer:
         setup, n_inst, work = self._bin(parts, wtc, cfg.width, cfg.height)
         return raster_cuda.pack_setup(setup, n_inst), work, instances
 
-    def _terrain_pass(self, vc, params, sh: _ShadowInputs):
+    def _terrain_pass(self, vc, params, sh: _ShadowInputs,
+                      lock_instances=None):
         """Raster products (z, prim_id, attrs, instances, work items)."""
         cfg = self.config
         rs = cfg.raster
-        packed, work, instances = self._raster_inputs(vc, params, sh)
+        packed, work, instances = self._raster_inputs(vc, params, sh,
+                                                      lock_instances)
         if rs.two_phase and not rs.wireframe:
             z, prim_id, attrs = raster_cuda.rasterize_two_phase(
                 packed, work, cfg.width, cfg.height, tile=rs.tile_w,
@@ -391,16 +409,19 @@ class Renderer:
     # -- frame -------------------------------------------------------------
 
     def _shadow_inputs(self, vc: Dict[str, torch.Tensor], params: FrameParams,
-                       scene_xf=None, shadow_prepass=None) -> _ShadowInputs:
+                       scene_xf=None, shadow_prepass=None,
+                       locked: bool = False) -> _ShadowInputs:
         """"Scene Refresh" and "Terrain Shadow": the shadow field, the mesh
-        receivers' factor function and the scene blocks, in either mode."""
+        receivers' factor function and the scene blocks, in either mode.
+        ``locked``: the main pass keeps a lock-view selection, so map mode
+        shares no geometry with it."""
         world_size = float(self.config.terrain.world_size)
         if scene_xf is None:
             scene_xf = self.scene_transforms
         scene_wa = self._scene_wa(params, scene_xf)
         if self.config.shadow_mode == "map":
             return self._map_shadow_inputs(vc, params, scene_wa,
-                                           shadow_prepass)
+                                           shadow_prepass, locked)
         no_overflow = torch.zeros((), dtype=torch.int32, device=self.device)
         if scene_wa is None:
             field = shadow.horizon_shadow_field(
@@ -427,14 +448,15 @@ class Renderer:
         return _ShadowInputs(field, mesh_fn, scene_wa, None, None,
                              no_overflow)
 
-    def _map_shadow_inputs(self, vc, params, scene_wa, shadow_prepass
-                           ) -> _ShadowInputs:
+    def _map_shadow_inputs(self, vc, params, scene_wa, shadow_prepass,
+                           locked: bool = False) -> _ShadowInputs:
         """Map mode: the light pass (or its cached result), the terrain
         field and the mesh receivers' PCF factors. With the light pass
         selecting from the main eye at full LOD its selection is a superset
         of the main frustum's (culling only removes), so the main pass
         reuses its geometry and runs only the attribute phase, which needs
-        this pass's shadow field."""
+        this pass's shadow field. A lock-view frame keeps its own frozen
+        selection, so nothing is shared there (``locked``)."""
         cfg = self.config
         share = False
         if shadow_prepass is not None:
@@ -445,7 +467,8 @@ class Renderer:
         else:
             # a coarsened (light eye, lod bias) or snapped-eye selection is
             # other geometry: the main view must morph from the true eye
-            share = (cfg.shadow_select == "main" and cfg.shadow_lod_bias == 0
+            share = (not locked and cfg.shadow_select == "main"
+                     and cfg.shadow_lod_bias == 0
                      and cfg.shadow_eye_quant == 0.0)
             out = self._light_depth_pass(params, vc["camera_pos"], scene_wa,
                                          return_geom=share)
@@ -512,20 +535,22 @@ class Renderer:
 
     def _frame_impl(self, camera: Camera, params: FrameParams,
                     lock_instances=None, adapt=None, band=None,
-                    scene_xf=None, shadow_prepass=None) -> FrameOutput:
+                    scene_xf=None, shadow_prepass=None):
         """The one frame path (Renderer.cpp:321-446), either shadow mode.
-        The JAX package's lock-view instances, eye adaptation and screen
-        band are not ported yet."""
-        if lock_instances is not None or adapt is not None or band is not None:
-            raise NotImplementedError(
-                f"lock-view, eye adaptation and screen bands: {_NOT_PORTED}")
+        ``lock_instances``: a frozen selection (lock-view) in place of the
+        main selection. ``adapt=(adapted_lum, dt)``: eye adaptation scales
+        the exposure, and the frame returns (FrameOutput, new adapted
+        luminance). The JAX package's screen band is not ported yet."""
+        if band is not None:
+            raise NotImplementedError(f"screen bands: {_NOT_PORTED}")
         cfg = self.config
         vc = self._view(camera)
-        sh = self._shadow_inputs(vc, params, scene_xf, shadow_prepass)
+        sh = self._shadow_inputs(vc, params, scene_xf, shadow_prepass,
+                                 locked=lock_instances is not None)
 
         # "Terrain": geometry + visibility + interpolated G-buffer attrs
         z, prim_id, attrs, instances, n_work = self._terrain_pass(
-            vc, params, sh)
+            vc, params, sh, lock_instances)
         covered = (prim_id >= 0) & (params.render_terrain > 0.5)
         albedo = attrs[..., vertex.ATTR_ALBEDO]
         normal = attrs[..., vertex.ATTR_NORMAL]
@@ -538,7 +563,13 @@ class Renderer:
             albedo, normal, shadow_px, covered, -rays,
             params.light_direction, params.light_irradiance,
             params.light_color, params.ambient_intensity)
-        ldr_linear = lighting.tonemap(hdr, params.exposure)
+        exposure = params.exposure
+        if adapt is not None:
+            adapted_lum, dt = adapt
+            new_adapted, scale = lighting.adapt_exposure(hdr, covered,
+                                                         adapted_lum, dt)
+            exposure = exposure * scale
+        ldr_linear = lighting.tonemap(hdr, exposure)
         sky = lighting.sky_color(rays, params.light_direction)
         ldr_linear = torch.where(covered[..., None], ldr_linear, sky)
 
@@ -561,7 +592,7 @@ class Renderer:
         work_ovf = n_work > self.max_work
         sel_ovf = count > self.max_active
         shadow_ovf = sh.overflow > 0
-        return FrameOutput(
+        out = FrameOutput(
             ldr=ldr, hdr=hdr, depth=depth, prim_id=prim_id,
             num_instances=torch.clamp(count, max=cfg.terrain.max_instances),
             num_work_items=n_work,
@@ -571,6 +602,9 @@ class Renderer:
                            + 2 * sel_ovf.to(torch.int32)
                            + 4 * shadow_ovf.to(torch.int32)),
         )
+        if adapt is not None:
+            return out, new_adapted
+        return out
 
     def render(self, camera: Camera, params: Optional[FrameParams] = None,
                shadow_prepass=None) -> FrameOutput:
@@ -758,13 +792,47 @@ class Renderer:
             return self._light_depth_pass(params, None,
                                           self._scene_wa(params))[0]
 
+    # -- eye adaptation and lock-view --------------------------------------
+
+    def render_adaptive(self, camera: Camera, params: FrameParams,
+                        adapted_lum, dt: float, instances=None,
+                        shadow_prepass=None):
+        """Render with eye adaptation: (FrameOutput, new adapted luminance).
+        Thread the returned luminance, a () tensor on the device, into the
+        next call (seed it with 0.5, the clamp range's midpoint); nothing is
+        read back to the host. ``instances``: a frozen selection
+        (lock-view); it and ``shadow_prepass`` compose with adaptation, as
+        every Animate feature does in the reference's loop
+        (Renderer.cpp:188-204)."""
+        lum = torch.as_tensor(adapted_lum, dtype=torch.float32,
+                              device=self.device)
+        with torch.no_grad():
+            return self._frame_impl(camera, params, lock_instances=instances,
+                                    adapt=(lum, float(dt)),
+                                    shadow_prepass=shadow_prepass)
+
+    def select(self, camera: Camera) -> quadtree.SelectedInstances:
+        """LOD selection alone, for lock-view: EditorParams.m_LockView
+        freezes the selection while the camera moves
+        (TerrainPass.cpp:173,192-197)."""
+        ts = self.config.terrain
+        vc = self._view(camera)
+        planes = math3d.frustum_planes(vc["world_to_clip"])
+        with torch.no_grad():
+            return quadtree.select_all_surfaces(ts, vc["camera_pos"], planes,
+                                                ts.lod_ranges(self.device))
+
+    def render_locked(self, camera: Camera, params: FrameParams,
+                      instances: quadtree.SelectedInstances) -> FrameOutput:
+        """Render with a frozen selection (lock-view): the camera moves, the
+        LOD selection stays ``instances`` (from ``select``)."""
+        with torch.no_grad():
+            return self._frame_impl(camera, params, lock_instances=instances)
+
     # -- not ported yet -----------------------------------------------------
 
-    def render_adaptive(self, *args, **kwargs):
-        raise NotImplementedError(f"eye adaptation: {_NOT_PORTED}")
-
-    def render_locked(self, *args, **kwargs):
-        raise NotImplementedError(f"lock-view: {_NOT_PORTED}")
+    def debug_selection(self, camera: Camera):
+        raise NotImplementedError(f"debug_selection: {_NOT_PORTED}")
 
     def reload_pipelines(self):
         raise NotImplementedError(f"reload_pipelines: {_NOT_PORTED}")
