@@ -74,11 +74,33 @@ Phases, each printing one line and raising on failure:
     device trace of 2 frames (device kernels and busy ms per frame, the
     busy share of the frames' CUDA-event time, the top kernels); then an
     App on the native 1024x1024 heightmap. Every App frame finite, covered
-    in (0, 1) and without overflow. Each part prints its seconds.
+    in (0, 1) and without overflow. Each part prints its seconds;
+13. editor path: the port's second entry point, the ``Editor`` around an
+    App at 1920x1152 (max_instances 1024, max_work 2048). A GLB written
+    here with numpy (``write_scene_glb``: a 256x256 RGB PNG whose rows use
+    all five filters, a textured quad that ``load_gltf`` subdivides to
+    131072 triangles, 64 scene blocks, a vertex-coloured box under rotation
+    and non-uniform scale, a matrix node) is loaded by the ``load``
+    command; then EDITOR_SCRIPT: render, walk and step, orbit, drag and
+    zoom, light, debug-quadtree, terrain off/on, lock, move-instance,
+    reload, stats, fps, trace, flamegraph, shadow-depth, fly 8,
+    clear-scene, with renders between. No response may be an error; every
+    frame finite, covered in (0, 1), overflow mask 0 (work items printed
+    against max_work); B1's launches are the frames plus the mesh-top
+    fields (one a frame with a scene, one for the flythrough's cache), B2's
+    the shadow-depth; the frame after reload is bit-identical to the one
+    before; the lock frame equals ``render_locked`` with ``select``'s
+    instances. Then B1 against its plain version at two editor cameras and
+    on the mesh-top field's compact triangles (one instance), B2 at the
+    shadow-depth light pass, with times, pairs and bounds; the "xla" and
+    "pallas" backends at 256x128 with the loaded scene (ids equal, depth
+    1e-6, attrs 3e-4); the editor's CUDA-event frame times.
 
 Each path's kernel launches are counted from 0 just before it runs. Then
 one JSON line with each kernel's launches (on its path: B1 and B2 on the
-map path, B3a and B3b on the two-phase path), and its error, times and
+map path, B3a and B3b on the two-phase path; B1 and B2 also carry the
+editor path's launches and numbers under ``editor_launches`` and
+``editor``), and its error, times and
 bound at camera 13, with each camera's under ``cameras`` (B1's at the
 map path's inputs, B3a's and B3b's at the horizon path's), and for B1, B2
 and B3a the pairs their block test evaluates (``evaluated_pairs``) beside
@@ -96,9 +118,11 @@ from __future__ import annotations
 
 import json
 import re
+import struct
 import subprocess
 import sys
 import time
+import zlib
 from collections import Counter
 from pathlib import Path
 
@@ -124,6 +148,29 @@ APP_DUMP_FRAMES = 4                 # the App's run with PNGs and a trace
 APP_DT = 1.0 / 60.0                 # run_flythrough's adaptation step
 TRACE_CAMERAS = (0, 13)             # the frames of the device trace
 MODE_CAMERAS = (0, 13, 32)          # frames of the reverse-z and wire modes
+# phase 13: the editor's commands ("{glb}" and "{tmp}" filled in). The
+# first camera looks down at the scene floating above the central peak;
+# the orbit camera circles it. Eye adaptation steps by wall time, so it
+# goes off before the frames that are compared with each other. The walk
+# ends 1.8 m above the terrain looking at the horizon, where the terrain
+# alone can pass max_work (its near nodes span many supertiles): that
+# view is not rendered, its work items are printed.
+EDITOR_VIEW = "camera 0 520 420  0 300 0"
+EDITOR_SCRIPT = [
+    EDITOR_VIEW, "load {glb}", "render",
+    "walk on", "step 0.05 w 5 -60", "step 0.05 W 0 -60", "step 0.05 wd -3 2",
+    EDITOR_VIEW, "orbit on", "drag 250 60", "zoom 0.7", "render",
+    "light 120 35", "render",
+    "debug-quadtree on", "render", "debug-quadtree off",
+    "terrain off", "render", "terrain on",
+    "adapt off", "lock", "drag 40 0", "render", "unlock",
+    "move-instance 0 30 0 0", "render", "reload", "render",
+    "stats", "fps", "trace {tmp}/trace.json", "flamegraph {tmp}/flame.svg",
+    "shadow-depth {tmp}/shadow.png", "fly 8", "clear-scene",
+    "render",
+]
+EDITOR_KERNEL_FRAMES = (0, 1)       # renders whose cameras B1 is held at
+BACKEND_SIZE = (256, 128)           # the xla-vs-pallas comparison's frame
 ATTR_TOL = 1e-5   # kernel and plain round every plane op the same way
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s and
 # float32 operations/s outside the tensor cores
@@ -184,6 +231,156 @@ def bound(n_bytes: float, n_ops: float) -> dict:
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_S
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """An 8-bit PNG of ``img`` (H, W) gray or (H, W, C) uint8, C = 2
+    (gray+alpha), 3 or 4, whose row y uses filter y % 5: None, Sub, Up,
+    Average and Paeth in turn."""
+    arr = img if img.ndim == 3 else img[..., None]
+    h, w, c = arr.shape
+    rows = arr.reshape(h, w * c).astype(np.int64)
+    raw = b""
+    for y in range(h):
+        kind = y % 5
+        cur = rows[y]
+        up = rows[y - 1] if y else np.zeros_like(cur)
+        left = np.concatenate([np.zeros(c, np.int64), cur[:-c]])
+        ul = np.concatenate([np.zeros(c, np.int64), up[:-c]])
+        if kind == 4:
+            pa, pb, pc = (np.abs(up - ul), np.abs(left - ul),
+                          np.abs(left + up - 2 * ul))
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, up, ul))
+        else:
+            pred = (0 * cur, left, up, (left + up) // 2)[kind]
+        raw += bytes([kind]) + ((cur - pred) % 256).astype(np.uint8).tobytes()
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    color = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def scene_texture(size: int, seed: int) -> np.ndarray:
+    """A (size, size, 3) uint8 texture from ``seed``: smooth colour waves
+    with a little noise, so that every PNG filter has work."""
+    rng = np.random.default_rng(seed)
+    i, j = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    ph = rng.uniform(0.0, 2.0 * np.pi, 3)
+    waves = [0.5 + 0.4 * np.sin(2 * np.pi * (i * (k + 1) + j * (3 - k))
+                                / size + ph[k]) for k in range(3)]
+    tex = np.stack(waves, -1) + rng.normal(0.0, 0.02, (size, size, 3))
+    return np.clip(tex * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def write_scene_glb(path, tex_size: int = 256, quad_size: float = 120.0,
+                    center=(0.0, 340.0, 0.0), root_yaw: float = 20.0,
+                    seed: int = 7) -> None:
+    """The editor path's scene as a GLB, written with numpy: a root node at
+    ``center`` (rotated ``root_yaw`` degrees about y) with two children,
+    * "quad": a +y-facing square of ``quad_size`` metres (non-uniform
+      scale 1 x 0.75) textured by ``scene_texture(tex_size)`` (a PNG in the
+      binary chunk, rows in all five filters), its uvs spanning 0.7 of the
+      texture: ``load_gltf`` subdivides it to 131072 triangles at 256
+      texels (64 blocks of 2048);
+    * "pillar": a box with per-vertex COLOR_0 and a base colour factor,
+      under rotation and non-uniform scale, floating above the quad (no
+      face coplanar with it), with a grandchild "cap" (the same box)
+      placed by a column-major matrix."""
+    s = 0.5
+    quad_pos = np.asarray([(-s, 0, s), (s, 0, s), (s, 0, -s), (-s, 0, -s)],
+                          np.float32)
+    quad_nrm = np.tile(np.asarray([[0, 1, 0]], np.float32), (4, 1))
+    quad_uv = (0.15 + 0.7 * np.asarray([(0, 0), (1, 0), (1, 1), (0, 1)])
+               ).astype(np.float32)
+    quad_idx = np.asarray([0, 1, 2, 0, 2, 3], np.uint32)
+    faces = [((0, 0, 1), [(-s, -s, s), (s, -s, s), (s, s, s), (-s, s, s)]),
+             ((0, 0, -1), [(s, -s, -s), (-s, -s, -s), (-s, s, -s),
+                           (s, s, -s)]),
+             ((1, 0, 0), [(s, -s, s), (s, -s, -s), (s, s, -s), (s, s, s)]),
+             ((-1, 0, 0), [(-s, -s, -s), (-s, -s, s), (-s, s, s),
+                           (-s, s, -s)]),
+             ((0, 1, 0), [(-s, s, s), (s, s, s), (s, s, -s), (-s, s, -s)]),
+             ((0, -1, 0), [(-s, -s, -s), (s, -s, -s), (s, -s, s),
+                           (-s, -s, s)])]
+    box_pos = np.asarray([c for _, cs in faces for c in cs], np.float32)
+    box_nrm = np.asarray([n for n, cs in faces for _ in cs], np.float32)
+    box_col = (0.25 + 0.5 * (box_pos + s)).astype(np.float32)
+    box_idx = np.asarray([[4 * f, 4 * f + 1, 4 * f + 2, 4 * f, 4 * f + 2,
+                           4 * f + 3] for f in range(6)], np.uint16).ravel()
+    png = png_bytes(scene_texture(tex_size, seed))
+
+    blob, views, accessors = b"", [], []
+
+    def add(data: bytes):
+        nonlocal blob
+        blob += b"\0" * (-len(blob) % 4)
+        views.append({"buffer": 0, "byteOffset": len(blob),
+                      "byteLength": len(data)})
+        blob += data
+        return len(views) - 1
+
+    def accessor(arr, kind, ctype):
+        accessors.append({"bufferView": add(arr.tobytes()),
+                          "componentType": ctype,
+                          "count": int(arr.shape[0]), "type": kind})
+        return len(accessors) - 1
+
+    f32, u16, u32 = 5126, 5123, 5125
+    quad = {"attributes": {"POSITION": accessor(quad_pos, "VEC3", f32),
+                           "NORMAL": accessor(quad_nrm, "VEC3", f32),
+                           "TEXCOORD_0": accessor(quad_uv, "VEC2", f32)},
+            "indices": accessor(quad_idx, "SCALAR", u32), "material": 0}
+    box = {"attributes": {"POSITION": accessor(box_pos, "VEC3", f32),
+                          "NORMAL": accessor(box_nrm, "VEC3", f32),
+                          "COLOR_0": accessor(box_col, "VEC3", f32)},
+           "indices": accessor(box_idx, "SCALAR", u16), "material": 1}
+    image_view = add(png)
+    ang = np.radians(root_yaw)
+    cap = np.eye(4)
+    cap[:3, :3] *= 0.6
+    cap[:3, 3] = (0.0, 0.8, 0.0)
+    gltf = {
+        "asset": {"version": "2.0"}, "scene": 0,
+        "scenes": [{"nodes": [0]}],
+        "nodes": [
+            {"name": "root", "translation": list(map(float, center)),
+             "rotation": [0.0, float(np.sin(ang / 2)), 0.0,
+                          float(np.cos(ang / 2))], "children": [1, 2]},
+            {"name": "quad", "mesh": 0,
+             "scale": [quad_size, 1.0, 0.75 * quad_size]},
+            {"name": "pillar", "mesh": 1, "children": [3],
+             "translation": [0.3 * quad_size, 0.15 * quad_size, 0.0],
+             "rotation": [0.0, 0.0, float(np.sin(0.2)), float(np.cos(0.2))],
+             "scale": [quad_size / 15, quad_size / 5, quad_size / 24]},
+            {"name": "cap", "mesh": 1,
+             "matrix": [float(v) for v in cap.T.ravel()]},
+        ],
+        "meshes": [{"primitives": [quad]}, {"primitives": [box]}],
+        "materials": [
+            {"pbrMetallicRoughness": {
+                "baseColorTexture": {"index": 0},
+                "baseColorFactor": [0.9, 0.95, 1.0, 1.0]}},
+            {"pbrMetallicRoughness": {
+                "baseColorFactor": [0.9, 0.3, 0.2, 1.0]}}],
+        "textures": [{"source": 0}],
+        "images": [{"bufferView": image_view, "mimeType": "image/png"}],
+        "accessors": accessors, "bufferViews": views,
+        "buffers": [{"byteLength": len(blob)}],
+    }
+    js = json.dumps(gltf).encode()
+    js += b" " * (-len(js) % 4)
+    blob += b"\0" * (-len(blob) % 4)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<III", 0x46546C67, 2,
+                             12 + 8 + len(js) + 8 + len(blob)))
+        fh.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        fh.write(struct.pack("<II", len(blob), 0x004E4942) + blob)
 
 
 def raster_work(vis, work, width: int, height: int, tile: int):
@@ -297,59 +494,68 @@ def bench_renderer(device, max_active=MAX_ACTIVE, **cfg_kw):
     return r, params, cams
 
 
-def phase_kernel(name, r, params, prepass, cams) -> dict:
-    """Kernel B1 against its plain version at the inputs the ``name`` path
-    gives it."""
+def b1_vs_plain(label: str, packed, work, width: int, height: int,
+                tile: int, layouts: bool = True) -> dict:
+    """Kernel B1 against its plain version at (``packed``, ``work``): ids
+    and z equal, attrs within ATTR_TOL, the launch counted; CUDA-event
+    times of both (and of each layout of LAYOUTS with ``layouts``), the
+    pairs and the bound. Returns the JSON numbers."""
     import torch
 
     from vrenderer_tpu_torch.ops import raster_cuda
 
-    cfg = r.config
-    args = (cfg.width, cfg.height, cfg.raster.tile_w)
-    per_cam = []
-    for i in KERNEL_CAMERAS:
-        packed, work = r.raster_inputs(cams.frame(i), params, prepass)
-        ref = raster_cuda.rasterize_plain(packed, work, *args)
-        before = raster_cuda.rasterize.launches
-        out = raster_cuda.rasterize(packed, work, *args)
-        torch.cuda.synchronize()
-        if raster_cuda.rasterize.launches != before + 1:
-            raise RuntimeError("the raster wrapper did not count its launch")
-        if not torch.equal(out[1], ref[1]):
-            n = int((out[1] != ref[1]).sum())
-            raise RuntimeError(f"camera {i}: {n} prim ids differ from plain")
-        if not torch.equal(out[0], ref[0]):
-            raise RuntimeError(f"camera {i}: z differs from plain")
-        err = float((out[2] - ref[2]).abs().max())
-        if not err <= ATTR_TOL:
-            raise RuntimeError(f"camera {i}: attrs differ by {err}")
-        def same(o, layout):
-            if not all(torch.equal(a, b) for a, b in zip(o, out)):
-                raise RuntimeError(f"camera {i}: B1 with layout {layout} "
-                                   f"differs")
+    args = (width, height, tile)
+    ref = raster_cuda.rasterize_plain(packed, work, *args)
+    before = raster_cuda.rasterize.launches
+    out = raster_cuda.rasterize(packed, work, *args)
+    torch.cuda.synchronize()
+    if raster_cuda.rasterize.launches != before + 1:
+        raise RuntimeError("the raster wrapper did not count its launch")
+    if not torch.equal(out[1], ref[1]):
+        n = int((out[1] != ref[1]).sum())
+        raise RuntimeError(f"{label}: {n} prim ids differ from plain")
+    if not torch.equal(out[0], ref[0]):
+        raise RuntimeError(f"{label}: z differs from plain")
+    err = float((out[2] - ref[2]).abs().max())
+    if not err <= ATTR_TOL:
+        raise RuntimeError(f"{label}: attrs differ by {err}")
 
-        layouts = layout_times(lambda **kw: raster_cuda.rasterize(
-            packed, work, *args, **kw), same)
-        k_ms = cuda_ms(lambda: raster_cuda.rasterize(packed, work, *args), 20)
-        p_ms = cuda_ms(
-            lambda: raster_cuda.rasterize_plain(packed, work, *args), 3,
-            queued=False)
-        n_px = int((out[1] >= 0).sum())
-        in_bytes, pairs = raster_work(packed.vis, work, *args)
-        b = bound(in_bytes + winner_bytes(out[1])
-                  + cfg.width * cfg.height * 40,
-                  pairs["covered_pairs"] * PAIR_OPS + n_px * RESOLVE_OPS)
-        log(f"kernel ({name} path) camera {i}: ids/z equal, attrs max abs "
-            f"err {err:.3g}, instance slots {packed.vis.shape[0]}, work "
-            f"items {int(work.num_items)}, covered "
-            f"{n_px / (cfg.width * cfg.height):.4f}, {pairs_text(pairs)}; "
-            f"kernel {k_ms:.4f} ms (layouts "
-            + ", ".join(f"{k} {v:.4f} ms" for k, v in layouts.items())
-            + f"), plain {p_ms:.4f} ms, bound "
-            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-        per_cam.append({"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                        **b, **pairs, "layout_ms": layouts})
-    return per_camera(per_cam)
+    def same(o, layout):
+        if not all(torch.equal(a, b) for a, b in zip(o, out)):
+            raise RuntimeError(f"{label}: B1 with layout {layout} differs")
+
+    lay = (layout_times(lambda **kw: raster_cuda.rasterize(
+        packed, work, *args, **kw), same) if layouts else {})
+    k_ms = cuda_ms(lambda: raster_cuda.rasterize(packed, work, *args), 20)
+    p_ms = cuda_ms(lambda: raster_cuda.rasterize_plain(packed, work, *args),
+                   3, queued=False)
+    n_px = int((out[1] >= 0).sum())
+    in_bytes, pairs = raster_work(packed.vis, work, *args)
+    b = bound(in_bytes + winner_bytes(out[1]) + width * height * 40,
+              pairs["covered_pairs"] * PAIR_OPS + n_px * RESOLVE_OPS)
+    log(f"kernel {label}: ids/z equal, attrs max abs err {err:.3g}, "
+        f"instance slots {packed.vis.shape[0]} of {packed.vis.shape[1]} "
+        f"triangles, work items {int(work.num_items)}, covered "
+        f"{n_px / (width * height):.4f}, {pairs_text(pairs)}; kernel "
+        f"{k_ms:.4f} ms"
+        + (" (layouts " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                    lay.items()) + ")" if lay else "")
+        + f", plain {p_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']})")
+    out = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b, **pairs}
+    if lay:
+        out["layout_ms"] = lay
+    return out
+
+
+def phase_kernel(name, r, params, prepass, cams) -> dict:
+    """Kernel B1 against its plain version at the inputs the ``name`` path
+    gives it."""
+    cfg = r.config
+    return per_camera([b1_vs_plain(
+        f"({name} path) camera {i}",
+        *r.raster_inputs(cams.frame(i), params, prepass), cfg.width,
+        cfg.height, cfg.raster.tile_w) for i in KERNEL_CAMERAS])
 
 
 def phase_golden(device) -> None:
@@ -672,63 +878,69 @@ def phase_mode_frames(device, params, cams) -> None:
             + ", ".join(f"{m:.3f} ms" for m in ms))
 
 
-def phase_depth_kernel(r, params, cams) -> dict:
-    """Kernel B2 against its plain version and kernel B1's z at the map
-    cell's light-pass inputs."""
+def b2_vs_plain(label: str, vis, work, res: int, tile: int,
+                layouts: bool = True) -> dict:
+    """Kernel B2 against its plain version and kernel B1's z at (``vis``,
+    ``work``), a res x res light view: z bitwise equal to both, the
+    background F32_FAR; CUDA-event times (and each layout's), pairs and
+    bound. Returns the JSON numbers."""
     import torch
 
     from vrenderer_tpu_torch.ops import raster_cuda
 
+    args = (res, res, tile)
+    ref = raster_cuda.rasterize_depth_plain(vis, work, *args)
+    before = raster_cuda.rasterize_depth.launches
+    z = raster_cuda.rasterize_depth(vis, work, *args)
+    torch.cuda.synchronize()
+    if raster_cuda.rasterize_depth.launches != before + 1:
+        raise RuntimeError("the depth wrapper did not count its launch")
+    if not torch.equal(z, ref):
+        n = int((z != ref).sum())
+        raise RuntimeError(f"{label}: {n} depth pixels differ from plain")
+    coef = torch.zeros(vis.shape[:2] + (raster_cuda.NUM_COEF,),
+                       device=vis.device)
+    z_b1 = raster_cuda.rasterize(raster_cuda.PackedTris(vis, coef), work,
+                                 *args)[0]
+    if not torch.equal(z, z_b1):
+        raise RuntimeError(f"{label}: depth differs from B1's z")
+    if not bool(torch.all((z < 2.0) | (z == raster_cuda.F32_FAR))):
+        raise RuntimeError(f"{label}: background is not F32_FAR")
+    err = float((z - ref).abs().max())
+
+    def same(o, layout):
+        if not torch.equal(o, z):
+            raise RuntimeError(f"{label}: B2 with layout {layout} differs")
+
+    lay = (layout_times(lambda **kw: raster_cuda.rasterize_depth(
+        vis, work, *args, **kw), same) if layouts else {})
+    k_ms = cuda_ms(lambda: raster_cuda.rasterize_depth(vis, work, *args), 20)
+    p_ms = cuda_ms(lambda: raster_cuda.rasterize_depth_plain(vis, work, *args),
+                   3, queued=False)
+    covered = float((z < 2.0).float().mean())
+    in_bytes, pairs = raster_work(vis, work, *args)
+    b = bound(in_bytes + res * res * 4, pairs["covered_pairs"] * PAIR_OPS)
+    log(f"depth kernel {label}: z equal to plain and to B1, work items "
+        f"{int(work.num_items)}, covered {covered:.4f}, {pairs_text(pairs)}; "
+        f"kernel {k_ms:.4f} ms"
+        + (" (layouts " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                    lay.items()) + ")" if lay else "")
+        + f", plain {p_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']})")
+    out = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b, **pairs}
+    if lay:
+        out["layout_ms"] = lay
+    return out
+
+
+def phase_depth_kernel(r, params, cams) -> dict:
+    """Kernel B2 against its plain version and kernel B1's z at the map
+    cell's light-pass inputs."""
     res = r.config.shadow_resolution
-    args = (res, res, r.config.raster.tile_w)
-    per_cam = []
-    for i in KERNEL_CAMERAS:
-        vis, work = r.light_raster_inputs(cams.frame(i), params)
-        ref = raster_cuda.rasterize_depth_plain(vis, work, *args)
-        before = raster_cuda.rasterize_depth.launches
-        z = raster_cuda.rasterize_depth(vis, work, *args)
-        torch.cuda.synchronize()
-        if raster_cuda.rasterize_depth.launches != before + 1:
-            raise RuntimeError("the depth wrapper did not count its launch")
-        if not torch.equal(z, ref):
-            n = int((z != ref).sum())
-            raise RuntimeError(f"camera {i}: {n} depth pixels differ from "
-                               f"plain")
-        coef = torch.zeros(vis.shape[:2] + (raster_cuda.NUM_COEF,),
-                           device=vis.device)
-        z_b1 = raster_cuda.rasterize(raster_cuda.PackedTris(vis, coef), work,
-                                     *args)[0]
-        if not torch.equal(z, z_b1):
-            raise RuntimeError(f"camera {i}: depth differs from B1's z")
-        if not bool(torch.all((z < 2.0) | (z == raster_cuda.F32_FAR))):
-            raise RuntimeError(f"camera {i}: background is not F32_FAR")
-        err = float((z - ref).abs().max())
-
-        def same(o, layout):
-            if not torch.equal(o, z):
-                raise RuntimeError(f"camera {i}: B2 with layout {layout} "
-                                   f"differs")
-
-        layouts = layout_times(lambda **kw: raster_cuda.rasterize_depth(
-            vis, work, *args, **kw), same)
-        k_ms = cuda_ms(lambda: raster_cuda.rasterize_depth(vis, work, *args),
-                       20)
-        p_ms = cuda_ms(
-            lambda: raster_cuda.rasterize_depth_plain(vis, work, *args), 3,
-            queued=False)
-        covered = float((z < 2.0).float().mean())
-        in_bytes, pairs = raster_work(vis, work, *args)
-        b = bound(in_bytes + res * res * 4, pairs["covered_pairs"] * PAIR_OPS)
-        log(f"depth kernel camera {i}: z equal to plain and to B1, work "
-            f"items {int(work.num_items)} (max_work {r.max_work}), covered "
-            f"{covered:.4f}, {pairs_text(pairs)}; kernel {k_ms:.4f} ms "
-            "(layouts "
-            + ", ".join(f"{k} {v:.4f} ms" for k, v in layouts.items())
-            + f"), plain {p_ms:.4f} ms, bound "
-            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-        per_cam.append({"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                        **b, **pairs, "layout_ms": layouts})
-    return per_camera(per_cam)
+    return per_camera([b2_vs_plain(
+        f"camera {i} (max_work {r.max_work})",
+        *r.light_raster_inputs(cams.frame(i), params), res,
+        r.config.raster.tile_w) for i in KERNEL_CAMERAS])
 
 
 def map_golden_renderer(device):
@@ -1123,6 +1335,197 @@ def phase_app(device, card: str) -> None:
         f"{time.perf_counter() - t0:.1f} s)")
 
 
+def phase_editor(device, card: str) -> tuple:
+    """Phase 13 (module docstring). Returns the JSON numbers of B1 (at the
+    editor cameras and on the mesh-top field's triangles) and of B2 (the
+    shadow-depth light pass), and the path's launches."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        return _phase_editor(device, card, tmp)
+
+
+def _phase_editor(device, card: str, tmp: str) -> tuple:
+    import torch
+
+    from vrenderer_tpu_torch.app import App
+    from vrenderer_tpu_torch.config import FrameConfig, TerrainSettings
+    from vrenderer_tpu_torch.editor import Editor
+    from vrenderer_tpu_torch.models.scene import load_gltf
+    from vrenderer_tpu_torch.ops import shadow
+    from vrenderer_tpu_torch.renderer import Renderer
+
+    t0 = time.perf_counter()
+    glb = f"{tmp}/scene.glb"
+    write_scene_glb(glb)
+    cfg = FrameConfig(width=WIDTH, height=HEIGHT,
+                      terrain=TerrainSettings(max_instances=1024))
+    tpb = cfg.terrain.tris_per_instance
+    t1 = time.perf_counter()
+    sc = load_gltf(glb, device=device)
+    load_s = time.perf_counter() - t1
+    tris = [i.mesh.num_tris for i in sc.instances]
+    blocks = sum(-(-t // tpb) for t in tris)
+    log(f"editor scene: {len(tris)} instances "
+        f"({', '.join(f'{i.name} {t}' for i, t in zip(sc.instances, tris))} "
+        f"triangles), {sum(tris)} triangles, {blocks} scene blocks of {tpb}; "
+        f"load_gltf {load_s:.2f} s")
+    del sc
+
+    ed = Editor(App(cfg, device=device), out_dir=f"{tmp}/editor")
+    frame_spans = []
+    render_frame = ed._render
+
+    def timed_render():
+        """The editor's frame (render and the ldr copy) between CUDA
+        events, without the render command's PNG write."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = render_frame()
+        end.record()
+        frame_spans.append((start, end))
+        return out
+
+    ed._render = timed_render
+    reset_launches()
+    frames, ms, b1_expect, b2_expect = [], [], 0, 0
+    lock_state = reload_pair = None
+    for line in EDITOR_SCRIPT:
+        cmd = line.format(glb=glb, tmp=tmp)
+        r = ed.app.renderer
+        scene = r.scene_transforms is not None
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        resp = ed.execute(cmd)
+        end.record()
+        if resp.startswith(("error", "unknown")):
+            raise RuntimeError(f"editor: {cmd!r} -> {resp}")
+        if cmd == "render":
+            out = ed.last_output
+            frames.append((len(frames), ed.camera, out))
+            ms.append((start, end))
+            b1_expect += 1 + scene     # the main raster and the mesh-top field
+            if ed.locked_instances is not None:
+                lock_state = (r, ed.camera, ed.app.params,
+                              ed.locked_instances, out,
+                              r.scene_transforms.clone())
+        elif cmd.startswith("fly"):
+            b1_expect += int(cmd.split()[1]) + scene    # + its prepass cache
+        elif cmd.startswith("shadow-depth"):
+            b2_expect += 1
+        elif cmd == "reload":
+            reload_pair = frames[-1][2]
+        elif cmd.startswith("step"):
+            walk_cam = ed.camera
+        log(f"editor> {cmd}: {resp.splitlines()[0]}")
+    torch.cuda.synchronize()
+    launched = read_launches()
+    run_s = time.perf_counter() - t0
+
+    if launched != launches(raster=b1_expect, raster_depth=b2_expect):
+        raise RuntimeError(f"editor launches {launched}, expected B1 "
+                           f"{b1_expect}, B2 {b2_expect}")
+    for i, _, out in frames:
+        fin = bool(torch.isfinite(out.ldr).all() & torch.isfinite(out.hdr)
+                   .all())
+        cov = float((out.prim_id >= 0).float().mean())
+        if not (fin and 0.0 < cov < 1.0 and int(out.overflow_mask) == 0):
+            raise RuntimeError(
+                f"editor frame {i}: finite {fin}, coverage {cov}, overflow "
+                f"mask {int(out.overflow_mask)}, work items "
+                f"{int(out.num_work_items)} (max_work "
+                f"{ed.app.renderer.max_work}), instances "
+                f"{int(out.num_selected)}")
+    work = [int(o.num_work_items) for _, _, o in frames]
+    scene_px = [int((o.prim_id >= 1024 * tpb).sum()) for _, _, o in frames]
+    after = frames[-2][2]
+    if not all(torch.equal(getattr(reload_pair, f), getattr(after, f))
+               for f in ("ldr", "hdr", "depth", "prim_id", "overflow_mask")):
+        raise RuntimeError("the frame after reload differs from the one "
+                           "before it")
+    r_lock, cam, params, inst, out, xf = lock_state
+    r_lock.scene_transforms = xf
+    ref = r_lock.render_locked(cam, params, inst)
+    if not all(torch.equal(getattr(ref, f), getattr(out, f))
+               for f in ("ldr", "depth", "prim_id", "overflow_mask")):
+        raise RuntimeError("the lock frame differs from render_locked with "
+                           "select's instances")
+    walk_items = [int(rw.raster_inputs(walk_cam, ed.app.params)[1].num_items)
+                  for rw in (r_lock, Renderer(cfg, ed.app.heightmap,
+                                              ed.app.albedo, device=device))]
+    log(f"editor walk camera (eye {walk_cam.eye.cpu().numpy().round(2)}, "
+        f"not rendered): work items {walk_items[0]} with the scene, "
+        f"{walk_items[1]} for the terrain alone, max_work "
+        f"{ed.app.renderer.max_work}")
+    times = [s.elapsed_time(e) for s, e in frame_spans]
+    cmd_times = [s.elapsed_time(e) for s, e in ms]
+    log(f"editor path ({len(frames)} renders + fly 8, {WIDTH}x{HEIGHT}): "
+        f"every response ok, frames finite, covered in (0, 1), overflow "
+        f"mask 0; work items {work} of max_work {ed.app.renderer.max_work}; scene "
+        f"pixels {scene_px}; launches {launched} = B1 {len(frames) + 8} "
+        f"frames + {b1_expect - len(frames) - 8} mesh-top fields, B2 "
+        f"{b2_expect} shadow-depth; reload frame bit-identical; lock frame "
+        f"equal to render_locked; {run_s:.1f} s")
+    log(f"editor frame times ({card}, CUDA events around Editor._render: "
+        f"the frame, its host work and the ldr copy): mean "
+        f"{np.mean(times):.3f} ms, p50 {np.median(times):.3f} ms, max "
+        f"{np.max(times):.3f} ms over {len(times)} renders; the render "
+        f"command with its PNG write: mean {np.mean(cmd_times):.3f} ms, p50 "
+        f"{np.median(cmd_times):.3f} ms, max {np.max(cmd_times):.3f} ms")
+
+    # the kernels at this path's own inputs (launches here are not counted)
+    r = r_lock
+    params = ed.app.params
+    cams = [frames[i][1] for i in EDITOR_KERNEL_FRAMES]
+    b1 = {f"frame {i}": b1_vs_plain(
+        f"(editor path) frame {i}", *r.raster_inputs(c, params), WIDTH,
+        HEIGHT, cfg.raster.tile_w, layouts=False)
+        for i, c in zip(EDITOR_KERNEL_FRAMES, cams)}
+    top = r._scene_top_world(r.scene_transforms)
+    res = r.heightmap.shape[0]
+    b1["mesh_top"] = b1_vs_plain(
+        f"(editor mesh-top field, {top.shape[1] // 3} compact triangles in "
+        f"one instance)", *shadow.mesh_top_inputs(
+            top, torch.ones((1,), dtype=torch.bool, device=device),
+            float(cfg.terrain.world_size), res), res, res, cfg.raster.tile_w,
+        layouts=False)
+    b2 = b2_vs_plain("(editor shadow-depth light pass)",
+                     *r.light_raster_inputs(None, params),
+                     cfg.shadow_resolution, cfg.raster.tile_w,
+                     layouts=False)
+
+    # the two backends on the card, at a small frame with the same scene
+    small = FrameConfig(width=BACKEND_SIZE[0], height=BACKEND_SIZE[1],
+                        terrain=TerrainSettings(max_instances=1024))
+    t1 = time.perf_counter()
+    outs = {}
+    for backend in ("xla", "pallas"):
+        rb = Renderer(small, ed.app.heightmap, ed.app.albedo,
+                      raster_backend=backend,
+                      scene=load_gltf(glb, device=device), device=device)
+        vc = rb._view(cams[0])
+        outs[backend] = rb._terrain_pass(vc, params,
+                                         rb._shadow_inputs(vc, params))
+    (zx, idx, atx, _, nx), (zp, idp, atp, _, npw) = (outs["xla"],
+                                                      outs["pallas"])
+    cov = idx >= 0
+    dz = float((zx - zp)[cov].abs().max())
+    da = float((atx - atp)[cov].abs().max())
+    if not (torch.equal(idx, idp) and dz <= 1e-6 and da <= 3e-4
+            and int(nx) == 0 < int(npw)):
+        raise RuntimeError(f"xla vs pallas backends: ids equal "
+                           f"{torch.equal(idx, idp)}, depth {dz}, attrs {da}")
+    log(f"backends at {BACKEND_SIZE[0]}x{BACKEND_SIZE[1]} (frame 0's camera, "
+        f"the loaded scene): xla (dense oracle) and pallas (B1) ids equal, "
+        f"depth max diff {dz:.3g}, attrs {da:.3g}, covered "
+        f"{float(cov.float().mean()):.4f}, work items xla {int(nx)} / "
+        f"pallas {int(npw)}; {time.perf_counter() - t1:.1f} s (whole editor "
+        f"phase {time.perf_counter() - t0:.1f} s)")
+    return b1, b2, launched
+
+
 def main() -> int:
     import torch
 
@@ -1191,16 +1594,19 @@ def main() -> int:
         f"frames (CUDA events, 1920x1152, light map {SHADOW_RES}^2)")
     del rm
     phase_map_cached(device, params, cams)
+    ed_b1, ed_b2, ed_launches = phase_editor(device, card)
 
     src = "vrenderer_tpu_torch/csrc/raster.cu"
     print(json.dumps({"kernels": [
         {"name": "raster", "route": "cuda", "source": src,
          "replaces": "vrenderer_tpu/ops/raster_pallas.py:598",
-         "launches": map_launches["raster"], **kern, "library_ms": None},
+         "launches": map_launches["raster"], **kern, "library_ms": None,
+         "editor_launches": ed_launches["raster"], "editor": ed_b1},
         {"name": "raster_depth", "route": "cuda", "source": src,
          "replaces": "vrenderer_tpu/ops/raster_pallas.py:1121",
          "launches": map_launches["raster_depth"], **kern_d,
-         "library_ms": None},
+         "library_ms": None,
+         "editor_launches": ed_launches["raster_depth"], "editor": ed_b2},
         {"name": "raster_zid", "route": "cuda", "source": src,
          "replaces": "vrenderer_tpu/ops/raster_pallas.py:1209",
          "launches": two_launches["raster_zid"], **kern_zid,

@@ -19,7 +19,7 @@ for name in names:
     importlib.import_module(name)
 assert not any(m == "vrenderer_tpu" or m.startswith("vrenderer_tpu.")
                for m in sys.modules), "imported the JAX package"
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -27,10 +27,16 @@ def test_package_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # config, camera, renderer, convert, utils.math3d, terrain.{heightmap,
-    # grid, quadtree}, ops.{texture, vertex, raster, raster_cuda, lighting,
-    # shadow, _build}, models.{mesh, scene} and the subpackages
-    assert int(proc.stdout.split()[-1]) >= 17
+    # config, camera, renderer, convert, app, capture, editor, entry,
+    # utils.{math3d, native}, terrain.{heightmap, grid, quadtree},
+    # ops.{texture, vertex, raster, raster_cuda, lighting, shadow, _build},
+    # models.{mesh, scene}, profiler.profiler,
+    # examples.{hello_triangle, walkthrough} and the subpackages
+    names = proc.stdout.split()
+    assert len(names) >= 31
+    for m in ("editor", "entry", "examples.hello_triangle",
+              "examples.walkthrough", "models.scene"):
+        assert f"vrenderer_tpu_torch.{m}" in names
 
 
 def test_no_jax_import_in_package_sources():

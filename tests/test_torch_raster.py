@@ -134,3 +134,33 @@ def test_oracle_port_matches_jax_oracle(view):
     # the JAX oracle resolves attributes through a float32 matmul
     np.testing.assert_allclose(attrs.numpy()[cov], np.asarray(at_x)[cov],
                                atol=3e-4)
+
+
+@pytest.mark.parametrize("view,mode", [
+    ("frontal", dict(reverse_z=True)),
+    ("oblique", dict(reverse_z=True, wire_px=0.5))],
+    ids=["frontal-reverse_z", "oblique-reverse_z_wire"])
+def test_oracle_modes_match_jax_oracle(view, mode):
+    """The dense oracle's reverse-z (the farthest z wins, ties to the
+    lowest id) and wireframe fill (within wire_px of an edge) against the
+    JAX oracle's: ids exact, z 1e-6 where covered and the background
+    (+-F32_FAR) exact elsewhere, attrs 3e-4."""
+    _, _, setup, _ = _scene(*_VIEWS[view])
+    z_x, id_x, at_x = jraster.rasterize_xla(setup, W, H, tile=(8, 128),
+                                            batch=64, **mode)
+    z, ids, attrs = traster.rasterize_xla(
+        traster.TriSetup(*(t(x) for x in setup)), W, H, batch=64, **mode)
+    cov = np.asarray(id_x) >= 0
+    assert 0.05 < cov.mean() < 1.0
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(id_x))
+    np.testing.assert_allclose(z.numpy()[cov], np.asarray(z_x)[cov], atol=1e-6)
+    np.testing.assert_array_equal(z.numpy()[~cov], np.asarray(z_x)[~cov])
+    np.testing.assert_allclose(attrs.numpy()[cov], np.asarray(at_x)[cov],
+                               atol=3e-4)
+    # the mode changes the result: reverse-z picks other winners, the
+    # wireframe leaves triangle interiors open
+    _, plain_ids, _ = traster.rasterize_xla(
+        traster.TriSetup(*(t(x) for x in setup)), W, H, batch=64)
+    assert (ids != plain_ids).any()
+    if mode.get("wire_px"):
+        assert (ids.numpy() >= 0).sum() < (plain_ids.numpy() >= 0).sum()

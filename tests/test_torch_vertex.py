@@ -121,3 +121,28 @@ def test_setup_components_match(view):
                                    err_msg=f"map {k}")
     for jm, tm in zip(jc.vert_clip, tc.vert_clip):
         assert_close(tm, jm, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("view,uv_mode", [("golden", "lattice"),
+                                          ("oblique", "d3d")])
+def test_vertex_stage_exact_matches(view, uv_mode):
+    """The test oracle (terrain_vs.hlsl:35-62: morph, then sample at the
+    morphed position) against JAX's, in both texel modes; and it agrees
+    with the lattice vertex stage at the unmorphed vertices."""
+    import dataclasses
+
+    from vrenderer_tpu.config import TerrainSettings as JTerrainSettings
+
+    jset = JTerrainSettings(**dict(dataclasses.asdict(JSET), uv_mode=uv_mode))
+    tset = dataclasses.replace(SET, uv_mode=uv_mode)
+    jout, tout, inst, jvc = _vertex_pair(view)
+    hm, _, _ = _textures()
+    mh = np.float32(12.0)
+    want = jvertex.vertex_stage_exact(jset, inst, jvc["camera_pos"], hm, mh,
+                                      jset.lod_ranges())
+    tinst = convert.selected_instances(*(np.asarray(x) for x in inst))
+    got = tvertex.vertex_stage_exact(tset, tinst, t(jvc["camera_pos"]),
+                                     t(hm), torch.tensor(mh),
+                                     tset.lod_ranges())
+    assert got.shape == tout.world.shape
+    assert_close(got, want, atol=1e-5)

@@ -62,6 +62,9 @@ class App:
     config: FrameConfig
     heightmap_resolution: int = 256
     seed: int = 1234
+    # "pallas" (the port's CUDA kernels) or "xla" (the dense oracle):
+    # Renderer's raster_backend
+    raster_backend: str = "pallas"
     # the boot scene (the reference loads Cube.gltf, main.cpp:89-95): a
     # models.scene.Scene or None
     scene: object = None
@@ -79,6 +82,7 @@ class App:
             self.heightmap_resolution, self.seed, device=self.device)
         self.albedo = hmod.procedural_albedo(self.heightmap)
         self.renderer = Renderer(self.config, self.heightmap, self.albedo,
+                                 raster_backend=self.raster_backend,
                                  scene=self.scene, device=self.device)
         self.profiler = FrameProfiler()
         self.params = FrameParams.default(device=self.device)

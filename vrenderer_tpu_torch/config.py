@@ -28,7 +28,7 @@ class TerrainSettings:
     max_lods: int = 12
     # selection window halfwidth in nodes per LOD level (terrain/quadtree.py)
     select_window: int = 16
-    # texel addressing: only "lattice" is ported (ops/texture.py)
+    # texel addressing, "lattice" or "d3d" (ops/texture.py)
     uv_mode: str = "lattice"
 
     def __post_init__(self):

@@ -203,18 +203,23 @@ def _affine(coef: torch.Tensor, px: torch.Tensor, py: torch.Tensor
 
 
 def rasterize_xla(setup: TriSetup, width: int, height: int,
-                  batch: int = 128):
+                  batch: int = 128, reverse_z: bool = False,
+                  wire_px: float = 0.0):
     """Brute-force oracle (raster.py:391-556 of the JAX package): every
     triangle batch is tested against every pixel of the batch's bbox union
     (no pixel outside a triangle's bbox can be covered); within a batch the
-    minimum z wins with ties to the lowest id, across batches ties keep
-    the lower id. Then the winners' attribute planes are evaluated and
-    perspective-divided. Returns (z (H, W), id (H, W) int32,
+    minimum z wins (the maximum under ``reverse_z``) with ties to the
+    lowest id, across batches ties keep the lower id. ``wire_px > 0`` is
+    the wireframe fill mode: a pixel covers only within ``wire_px`` of an
+    edge. Then the winners' attribute planes are evaluated and
+    perspective-divided. Returns (z (H, W), F32_FAR where uncovered,
+    -F32_FAR under ``reverse_z``; id (H, W) int32, -1 uncovered;
     attrs (H, W, A))."""
     dev = setup.edge.device
     n = setup.edge.shape[0]
     C = setup.planes.shape[1]
-    z = torch.full((height, width), F32_FAR, dtype=torch.float32, device=dev)
+    worst = -F32_FAR if reverse_z else F32_FAR
+    z = torch.full((height, width), worst, dtype=torch.float32, device=dev)
     idb = torch.full((height, width), 2**31 - 1, dtype=torch.int32,
                      device=dev)
     acc = torch.zeros((height, width, C - 1), dtype=torch.float32, device=dev)
@@ -224,8 +229,9 @@ def rasterize_xla(setup: TriSetup, width: int, height: int,
     for s in range(0, live_tris.shape[0], batch):
         sel = live_tris[s:s + batch]
         bb = setup.bbox[sel]
-        x0, y0 = int(bb[:, 0].min()), int(bb[:, 1].min())
-        x1, y1 = int(bb[:, 2].max()), int(bb[:, 3].max())
+        lo, hi = bb.amin(0), bb.amax(0)
+        x0, y0, x1, y1 = (int(v) for v in
+                          torch.stack([lo[0], lo[1], hi[2], hi[3]]).tolist())
         x0, y0 = max(x0, 0), max(y0, 0)
         x1, y1 = min(x1, width - 1), min(y1, height - 1)
         if x1 < x0 or y1 < y0:
@@ -243,15 +249,19 @@ def rasterize_xla(setup: TriSetup, width: int, height: int,
         cover = (torch.all(ev >= 0.0, dim=1) & (zv >= 0.0) & (zv <= 1.01)
                  & (px >= bb[:, 0:1] + 0.5) & (px <= bb[:, 2:3] + 0.5)
                  & (py >= bb[:, 1:2] + 0.5) & (py <= bb[:, 3:4] + 0.5))
-        zv = torch.where(cover, zv, torch.full_like(zv, F32_FAR))
-        best = torch.argmin(zv, dim=0)
+        if wire_px > 0.0:
+            cover &= torch.amin(ev, dim=1) <= wire_px
+        zv = torch.where(cover, zv, torch.full_like(zv, worst))
+        best = (torch.argmax(zv, dim=0) if reverse_z
+                else torch.argmin(zv, dim=0))
         z_b = torch.gather(zv, 0, best[None, :])[0]
         id_b = ids[sel][best]
         zw, iw = z[win].reshape(-1), idb[win].reshape(-1)
-        upd = (z_b < zw) | ((z_b == zw) & (id_b < iw))
+        nearer = (z_b > zw) if reverse_z else (z_b < zw)
+        upd = nearer | ((z_b == zw) & (id_b < iw))
         z[win] = torch.where(upd, z_b, zw).reshape(z[win].shape)
         idb[win] = torch.where(upd, id_b, iw).reshape(idb[win].shape)
-    idb = torch.where(z == F32_FAR, torch.full_like(idb, -1), idb)
+    idb = torch.where(z == worst, torch.full_like(idb, -1), idb)
 
     for sel, px, py, win in batches:
         B, P = sel.shape[0], px.shape[1]

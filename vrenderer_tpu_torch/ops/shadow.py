@@ -105,29 +105,31 @@ def shadow_line_factor(y: torch.Tensor, sline: torch.Tensor,
     return 1.0 - torch.clamp(excess / softness_h + 1.0, 0.0, 1.0)
 
 
-def mesh_top_field(world: torch.Tensor, valid: torch.Tensor,
-                   world_size: float, resolution: int) -> torch.Tensor:
-    """Top-down max-height field of scene geometry, (res, res) world units
-    (-1e9 where empty), on the heightmap's texel lattice.
+# the overhead view of mesh_top_field: eye height and far plane
+_TOP_EYE_H = 1.0e4
+_TOP_FAR = 2.0e4
 
-    ``world`` is (1, 3*T, 3): T triangles as vertex triples (a multiple of
-    64, padded with degenerate triangles). They are rasterized from an
-    overhead ortho view through ``raster_cuda.rasterize`` with a work list
-    of every supertile of one instance; min z with ties to the lowest id,
-    exactly what the JAX package's dense oracle computes."""
+
+def mesh_top_inputs(world: torch.Tensor, valid: torch.Tensor,
+                    world_size: float, resolution: int):
+    """The overhead raster of ``mesh_top_field``: (packed triangles, work
+    list of every supertile of the ``B`` instances), for the (res, res)
+    target. ``world`` is (B, 3*T, 3), T triangles an instance as vertex
+    triples."""
     from vrenderer_tpu_torch.ops import raster, raster_cuda
 
     dev = world.device
     # overhead view looking straight down with up = (0, 0, -1): pixel
     # columns follow +x and rows +z, so pixel (row, col) = texel (v, u)
-    eye = torch.tensor([0.0, 1e4, 0.0], dtype=torch.float32, device=dev)
+    eye = torch.tensor([0.0, _TOP_EYE_H, 0.0], dtype=torch.float32,
+                       device=dev)
     target = torch.zeros(3, dtype=torch.float32, device=dev)
     up = torch.tensor([0.0, 0.0, -1.0], dtype=torch.float32, device=dev)
     w2v = math3d.look_at(eye, target, up)
     # pixel centres land on world_to_uv's texel lattice
     texel = world_size / (resolution - 1)
     ext = world_size * 0.5 + texel * 0.5
-    proj = math3d.ortho_proj_d3d_style(-ext, ext, -ext, ext, 1.0, 2e4,
+    proj = math3d.ortho_proj_d3d_style(-ext, ext, -ext, ext, 1.0, _TOP_FAR,
                                        device=dev)
     wtc = math3d.view_proj(w2v, proj)
     B, V = world.shape[0], world.shape[1]
@@ -138,10 +140,27 @@ def mesh_top_field(world: torch.Tensor, valid: torch.Tensor,
     idx = torch.arange(V, device=dev).reshape(tpb, 3)
     setup = raster.setup_triangles(world, attrs, valid, idx, wtc,
                                    resolution, resolution)
-    packed = raster_cuda.pack_setup(setup, B)
-    work = raster_cuda.full_work_list(B, resolution, resolution, device=dev)
+    return (raster_cuda.pack_setup(setup, B),
+            raster_cuda.full_work_list(B, resolution, resolution,
+                                       device=dev))
+
+
+def mesh_top_field(world: torch.Tensor, valid: torch.Tensor,
+                   world_size: float, resolution: int) -> torch.Tensor:
+    """Top-down max-height field of scene geometry, (res, res) world units
+    (-1e9 where empty), on the heightmap's texel lattice.
+
+    ``world`` is (1, 3*T, 3): T triangles as vertex triples (a multiple of
+    64, padded with degenerate triangles). They are rasterized from an
+    overhead ortho view through ``raster_cuda.rasterize`` with a work list
+    of every supertile of one instance (``mesh_top_inputs``); min z with
+    ties to the lowest id, exactly what the JAX package's dense oracle
+    computes."""
+    from vrenderer_tpu_torch.ops import raster_cuda
+
+    packed, work = mesh_top_inputs(world, valid, world_size, resolution)
     z, prim, _ = raster_cuda.rasterize(packed, work, resolution, resolution)
-    height = eye[1] - (1.0 + z * (2e4 - 1.0))
+    height = _TOP_EYE_H - (1.0 + z * (_TOP_FAR - 1.0))
     return torch.where(prim >= 0, height, torch.full_like(height, -1e9))
 
 

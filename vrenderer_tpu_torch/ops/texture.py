@@ -1,6 +1,10 @@
-"""Bilinear texture sampling with clamp addressing, "lattice" texel mode
-(texel centres at integer coordinates under ``uv * (size - 1)``), as in
-``vrenderer_tpu.ops.texture``.
+"""Bilinear texture sampling with clamp addressing, as in
+``vrenderer_tpu.ops.texture``. Two texel modes: "lattice" (texel centres
+at integer coordinates under ``uv * (size - 1)``, the default) and "d3d",
+the reference's hardware convention (centres at half-integers under
+``uv * size - 0.5``, border clamp: SampleLevel with a linear-clamp
+sampler, terrain_vs.hlsl:32), selected per world by
+``TerrainSettings.uv_mode``.
 
 The separable grid sampler keeps the JAX package's form, two float32
 matrix products with a bilinear weight matrix, because the vertex stage
@@ -16,9 +20,12 @@ import torch
 def texel_coords(u: torch.Tensor, size: int, mode: str = "lattice"
                  ) -> torch.Tensor:
     """uv in [0, 1] -> continuous texel coordinate with clamp addressing."""
+    if mode == "d3d":
+        # clamping the continuous coordinate to [0, size-1] gives border
+        # addressing for the two bilinear taps
+        return torch.clamp(u * size - 0.5, 0.0, size - 1)
     if mode != "lattice":
-        # "d3d" addressing waits with the rest of queue A14 (ROADMAP.md)
-        raise NotImplementedError(f"texel addressing {mode!r} is not ported")
+        raise ValueError(f"unknown texel addressing mode {mode!r}")
     return torch.clamp(u, 0.0, 1.0) * (size - 1)
 
 

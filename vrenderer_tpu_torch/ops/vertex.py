@@ -175,3 +175,38 @@ def vertex_stage(settings: TerrainSettings, instances: SelectedInstances,
                            max_height, lod_ranges)
     attrs = vertex_attrs(settings, geom, albedo, shadow_field, nrm_field)
     return VertexOutput(world=geom.world, attrs=attrs)
+
+
+def vertex_stage_exact(settings: TerrainSettings, instances: SelectedInstances,
+                       camera_pos: torch.Tensor, heightmap: torch.Tensor,
+                       max_height: torch.Tensor, lod_ranges: torch.Tensor
+                       ) -> torch.Tensor:
+    """Test oracle, the literal terrain_vs.hlsl:35-62: morph first, then
+    sample the heightmap at the morphed position with the per-point
+    bilinear sampler. Returns world positions (I, S, S, 3)."""
+    S = settings.verts_per_side
+    world = float(settings.world_size)
+    gs = float(settings.grid_size)
+    I = instances.position.shape[0]
+
+    g = math3d.linspace(-1.0, 1.0, S, device=heightmap.device)
+    ux = instances.position[:, 0:1] + instances.extents[:, 0:1] * g[None, :]
+    uz = instances.position[:, 2:3] + instances.extents[:, 2:3] * g[None, :]
+    wx = ux[:, None, :].expand(I, S, S)
+    wz = uz[:, :, None].expand(I, S, S)
+
+    dist = torch.sqrt((wx - camera_pos[0]) ** 2 + (wz - camera_pos[2]) ** 2)
+    grid_extents = 2.0 * instances.extents[:, 0]
+    k = morph_k(dist, grid_extents[:, None, None], lod_ranges)
+
+    grid01 = (g + 1.0) * 0.5
+    frac_part = (grid01 * gs * 0.5 - torch.floor(grid01 * gs * 0.5)) * 2.0 / gs
+    ge = grid_extents[:, None, None]
+    x_m = wx - frac_part[None, None, :] * ge * k
+    z_m = wz - frac_part[None, :, None] * ge * k
+
+    u = texture.world_to_uv(x_m, world)
+    v = texture.world_to_uv(z_m, world)
+    y = texture.sample_points(heightmap, u, v,
+                              mode=settings.uv_mode) * max_height
+    return torch.stack([x_m, y, z_m], dim=-1)

@@ -10,7 +10,9 @@ wireframe; ``reverse_z`` and ``wireframe`` select its depth test and fill
 mode), deferred lighting, tonemap, sky after tonemap, and sRGB encode.
 Every tensor lives on ``Renderer.device``: the CUDA device unless the
 caller passes another, where the rasterizers launch their CUDA kernels; on
-the CPU they run their plain versions.
+the CPU they run their plain versions. ``raster_backend="xla"`` takes the
+main and light rasters to the dense oracle ``ops/raster.rasterize_xla``
+instead, as the JAX package's "xla" backend does.
 
 The shadow phase has two modes (``FrameConfig.shadow_mode``):
 
@@ -25,9 +27,10 @@ The shadow phase has two modes (``FrameConfig.shadow_mode``):
   geometry, masked to the main frustum's nodes.
 
 Eye adaptation (``render_adaptive``) and lock-view (``select``,
-``render_locked``) compose with both modes and with a prepass. The sharded
-band path, ``debug_selection`` and pipeline reload raise
-NotImplementedError; ROADMAP.md queues them.
+``render_locked``) compose with both modes and with a prepass;
+``debug_selection`` returns the quadtree debug view's masks and
+``reload_pipelines`` drops the cached prepasses. The sharded band path
+raises NotImplementedError; ROADMAP.md queues it.
 """
 
 from __future__ import annotations
@@ -127,16 +130,27 @@ class Renderer:
     """Owns the static config and assets on ``device`` (default: the CUDA
     device; a RuntimeError without one, so pass ``device="cpu"`` there).
 
+    raster_backend: "pallas" (default), the port's hand-written CUDA
+    kernels (their plain versions on the CPU), or "xla", the dense oracle
+    ``raster.rasterize_xla`` for the main and light rasters, which counts
+    no work items; the JAX package's names, so its call sites carry over.
+    interpret: accepted for the JAX package's API; the port has no kernel
+    interpreter, so ``interpret=True`` on a CUDA device raises rather than
+    run the plain versions there.
+
     max_active: render budget, the number of selected instances that feed
     the vertex/setup/raster pipeline (selection runs at max_instances;
     frames selecting more set FrameOutput.overflow)."""
 
     def __init__(self, config: FrameConfig, heightmap: torch.Tensor,
                  albedo: torch.Tensor, light: LightParams = LightParams(),
+                 raster_backend: str = "pallas", interpret: bool = False,
                  max_work: int = 2048, scene: Any = None,
                  max_active: Optional[int] = None, device=None):
         if config.shadow_mode not in ("horizon", "map"):
             raise ValueError(f"unknown shadow_mode {config.shadow_mode!r}")
+        if raster_backend not in ("pallas", "xla"):
+            raise ValueError(f"unknown raster_backend {raster_backend!r}")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -144,6 +158,13 @@ class Renderer:
                     "is available; pass device=\"cpu\" to render on the CPU")
             device = "cuda"
         self.device = torch.device(device)
+        if interpret and self.device.type == "cuda":
+            raise ValueError(
+                "interpret=True: the port has no kernel interpreter, and on "
+                "the CUDA device it launches the kernels; render on "
+                "device=\"cpu\" for their plain versions")
+        self.raster_backend = raster_backend
+        self.interpret = interpret
         self.config = config
         if heightmap is None:
             # missing texture: the reference binds black
@@ -173,7 +194,7 @@ class Renderer:
         self._shadow_prepass_cache = None
         self._prepare_scene(scene)
         rs = config.raster
-        if rs.two_phase and not rs.wireframe:
+        if raster_backend == "pallas" and rs.two_phase and not rs.wireframe:
             slots = self.max_active + (0 if self._scene_obj is None
                                        else self._scene_obj.shape[0])
             if slots > raster_cuda.MAX_RESOLVE_INSTANCES:
@@ -339,12 +360,13 @@ class Renderer:
             order_key=torch.cat(dists))
         return setup, sum(p[0].shape[0] for p in parts), work
 
-    def _raster_inputs(self, vc: Dict[str, torch.Tensor], params: FrameParams,
-                       sh: _ShadowInputs, lock_instances=None):
-        """Select -> vertex -> setup -> bin: (packed triangles, work list,
-        instances). Terrain instances take slots 0..max_active-1 and scene
-        blocks follow. Map mode's shared geometry skips select and vertex;
-        ``lock_instances`` (lock-view) replaces the selection."""
+    def _raster_parts(self, vc: Dict[str, torch.Tensor], params: FrameParams,
+                      sh: _ShadowInputs, lock_instances=None):
+        """Select -> vertex: the main raster's (world, attrs, valid,
+        tri_idx) parts and the instances. Terrain instances take slots
+        0..max_active-1 and scene blocks follow. Map mode's shared geometry
+        skips select and vertex; ``lock_instances`` (lock-view) replaces
+        the selection."""
         cfg = self.config
         ts = cfg.terrain
         dev = self.device
@@ -369,14 +391,42 @@ class Renderer:
             parts.append((s_world, s_attrs,
                           torch.ones((s_world.shape[0],), dtype=torch.bool,
                                      device=dev), self._scene_tri_idx))
-        setup, n_inst, work = self._bin(parts, wtc, cfg.width, cfg.height)
+        return parts, instances
+
+    def _raster_inputs(self, vc: Dict[str, torch.Tensor], params: FrameParams,
+                       sh: _ShadowInputs, lock_instances=None):
+        """Select -> vertex -> setup -> bin: (packed triangles, work list,
+        instances)."""
+        cfg = self.config
+        parts, instances = self._raster_parts(vc, params, sh, lock_instances)
+        setup, n_inst, work = self._bin(parts, vc["world_to_clip"],
+                                        cfg.width, cfg.height)
         return raster_cuda.pack_setup(setup, n_inst), work, instances
+
+    @staticmethod
+    def _setup(parts, wtc, width: int, height: int) -> raster.TriSetup:
+        """The dense oracle's input: the parts' setups, instances in
+        order."""
+        setups = [raster.setup_triangles(w, a, v, t, wtc, width, height)
+                  for w, a, v, t in parts]
+        return raster.TriSetup(*(torch.cat(f) for f in zip(*setups)))
 
     def _terrain_pass(self, vc, params, sh: _ShadowInputs,
                       lock_instances=None):
         """Raster products (z, prim_id, attrs, instances, work items)."""
         cfg = self.config
         rs = cfg.raster
+        if self.raster_backend == "xla":
+            # the JAX package's "xla" backend counts no work items
+            parts, instances = self._raster_parts(vc, params, sh,
+                                                  lock_instances)
+            z, prim_id, attrs = raster.rasterize_xla(
+                self._setup(parts, vc["world_to_clip"], cfg.width,
+                            cfg.height),
+                cfg.width, cfg.height, reverse_z=rs.reverse_z,
+                wire_px=1.0 if rs.wireframe else 0.0)
+            return (z, prim_id, attrs, instances,
+                    torch.zeros((), dtype=torch.int64, device=self.device))
         packed, work, instances = self._raster_inputs(vc, params, sh,
                                                       lock_instances)
         if rs.two_phase and not rs.wireframe:
@@ -663,12 +713,23 @@ class Renderer:
         """Light view, selection, vertex geometry and binning of the light
         pass: (visibility rows, work list, world->clip, shear, instances,
         geometry). No attribute planes are set up: B2 reads none."""
+        res = self.config.shadow_resolution
+        parts, wtc, shear, instances, geom = self._light_parts(
+            params, camera_pos, scene_wa)
+        setup, n_inst, work = self._bin(parts, wtc, res, res)
+        return (raster_cuda.pack_vis(setup, n_inst), work, wtc, shear,
+                instances, geom)
+
+    def _light_parts(self, params: FrameParams, camera_pos=None,
+                     scene_wa=None):
+        """Light view, selection and vertex geometry: (the light raster's
+        parts without attribute channels, world->clip, shear, instances,
+        geometry)."""
         cfg = self.config
         ts = cfg.terrain
-        res = cfg.shadow_resolution
         wtc, kx, kz, span_x, span_z = shadow.sun_shear_matrices(
             params.light_direction, float(ts.world_size), params.max_height,
-            res)
+            cfg.shadow_resolution)
         instances, sel_eye, sel_ranges = self._light_select(params, wtc,
                                                             camera_pos)
         geom = vertex.vertex_geometry(ts, instances, sel_eye, self.heightmap,
@@ -685,9 +746,7 @@ class Renderer:
                           torch.ones((s_world.shape[0],), dtype=torch.bool,
                                      device=self.device),
                           self._scene_tri_idx))
-        setup, n_inst, work = self._bin(parts, wtc, res, res)
-        return (raster_cuda.pack_vis(setup, n_inst), work, wtc,
-                (kx, kz, span_x, span_z), instances, geom)
+        return parts, wtc, (kx, kz, span_x, span_z), instances, geom
 
     def _light_depth_pass(self, params: FrameParams, camera_pos=None,
                           scene_wa=None, return_geom: bool = False):
@@ -698,28 +757,39 @@ class Renderer:
         ``return_geom`` also the selection and its vertex geometry. The
         overflow flag covers the light work list (> max_work) and the
         light selection (> max_active): truncating either would drop
-        occluders."""
+        occluders. The "xla" backend has no work list, so its flag covers
+        the selection only, as in the JAX package."""
         res = self.config.shadow_resolution
-        vis, work, wtc, shear, instances, geom = self._light_pass_inputs(
-            params, camera_pos, scene_wa)
-        z = raster_cuda.rasterize_depth(vis, work, res, res,
-                                        tile=self.config.raster.tile_w)
-        overflow = ((work.num_items > self.max_work)
-                    | (instances.count > self.max_active)).to(torch.int32)
+        if self.raster_backend == "xla":
+            parts, wtc, shear, instances, geom = self._light_parts(
+                params, camera_pos, scene_wa)
+            z = raster.rasterize_xla(self._setup(parts, wtc, res, res), res,
+                                     res)[0]
+            overflow = (instances.count > self.max_active).to(torch.int32)
+        else:
+            vis, work, wtc, shear, instances, geom = self._light_pass_inputs(
+                params, camera_pos, scene_wa)
+            z = raster_cuda.rasterize_depth(vis, work, res, res,
+                                            tile=self.config.raster.tile_w)
+            overflow = ((work.num_items > self.max_work)
+                        | (instances.count > self.max_active)).to(torch.int32)
         out = (z, wtc, shadow._SHEAR_FAR - 1.0, overflow, shear)
         if return_geom:
             return out + (instances, geom)
         return out
 
-    def light_raster_inputs(self, camera: Camera,
+    def light_raster_inputs(self, camera: Optional[Camera] = None,
                             params: Optional[FrameParams] = None):
         """(visibility rows, work list) that ``render`` hands the depth-only
-        rasterizer for this camera: for driving kernel B2 on its own."""
+        rasterizer for this camera, or without one those of
+        ``render_shadow_depth`` (the default eye): for driving kernel B2
+        on its own."""
         if params is None:
             params = FrameParams.default(self.light, self.device)
         with torch.no_grad():
             vis, work, *_ = self._light_pass_inputs(
-                params, camera.eye, self._scene_wa(params))
+                params, None if camera is None else camera.eye,
+                self._scene_wa(params))
         return vis, work
 
     def _scene_wa(self, params: FrameParams, scene_xf=None):
@@ -829,10 +899,26 @@ class Renderer:
         with torch.no_grad():
             return self._frame_impl(camera, params, lock_instances=instances)
 
-    # -- not ported yet -----------------------------------------------------
+    # -- editor surface -----------------------------------------------------
 
-    def debug_selection(self, camera: Camera):
-        raise NotImplementedError(f"debug_selection: {_NOT_PORTED}")
+    def debug_selection(self, camera: Camera) -> quadtree.SelectionDebug:
+        """Per-level selected and frustum-culled masks of the quadtree, the
+        reference's green and red debug cubes (Renderer.cpp:481-513); for
+        single-surface worlds, as in the JAX package."""
+        ts = self.config.terrain
+        vc = self._view(camera)
+        with torch.no_grad():
+            return quadtree.select_nodes(
+                ts, vc["camera_pos"],
+                math3d.frustum_planes(vc["world_to_clip"]),
+                ts.lod_ranges(self.device))[1]
 
     def reload_pipelines(self):
-        raise NotImplementedError(f"reload_pipelines: {_NOT_PORTED}")
+        """The shader hot-reload (m_ShaderReoladRequested, Renderer.cpp:
+        226-231): drops what the renderer caches between frames, the
+        horizon and shadow-map prepasses, so that the next frame recomputes
+        them; it renders bit-identically. The CUDA kernels' library stays
+        loaded: a live process cannot unload it, and there is nothing to
+        recompile."""
+        self._horizon_prepass_cache = None
+        self._shadow_prepass_cache = None

@@ -1,6 +1,8 @@
 """Vectorized CDLOD quadtree selection (QuadTree::NodeSelect,
 QuadTree.cpp:80-131), as in ``vrenderer_tpu.terrain.quadtree``: a
-level-synchronous masked sweep over a 16x16-node window per level.
+level-synchronous masked sweep over a 16x16-node window per level, which
+also returns the per-level selected and culled masks of the reference's
+quadtree debug view (``SelectionDebug``).
 
 Selected nodes are compacted in level-major, row-major order with an
 order-preserving boolean mask, so instance slot ``i`` holds the same node
@@ -28,11 +30,21 @@ class SelectedInstances(NamedTuple):
     count: torch.Tensor     # () int32, total selected (may exceed cap)
 
 
+class SelectionDebug(NamedTuple):
+    """Per-level masks over the selection windows, the reference's
+    m_DebugDrawData (QuadTree.h:122-126)."""
+
+    selected: torch.Tensor  # (L+1, w, w) bool
+    culled: torch.Tensor    # (L+1, w, w) bool, visited but frustum-culled
+    origin: torch.Tensor    # (L+1, 2) int32 window origin (cell x, z)
+
+
 def select_nodes(settings: TerrainSettings, camera_pos: torch.Tensor,
                  frustum_planes: torch.Tensor, lod_ranges: torch.Tensor,
                  surface_location: torch.Tensor | None = None
-                 ) -> SelectedInstances:
-    """CDLOD selection for one quadtree surface (TerrainPass.cpp:176-186)."""
+                 ) -> tuple[SelectedInstances, SelectionDebug]:
+    """CDLOD selection for one quadtree surface (TerrainPass.cpp:176-186):
+    the instances and the debug masks."""
     dev = camera_pos.device
     W = float(settings.surface_size)
     L = settings.num_lods
@@ -45,7 +57,7 @@ def select_nodes(settings: TerrainSettings, camera_pos: torch.Tensor,
     ii = torch.arange(w, dtype=torch.int32, device=dev)
     cz, cx = torch.meshgrid(ii, ii, indexing="ij")
 
-    sel_masks, positions, extents_l = [], [], []
+    sel_masks, cull_masks, origins, positions, extents_l = [], [], [], [], []
     recurse_prev = origin_prev = None
     for d in range(L + 1):
         lod = L - d
@@ -95,6 +107,8 @@ def select_nodes(settings: TerrainSettings, camera_pos: torch.Tensor,
                    else visited & ~in_range_self)
 
         sel_masks.append(self_sel | emitted)
+        cull_masks.append(visited & in_range_self & ~in_frustum)
+        origins.append(torch.stack([ox, oz]))
         positions.append(torch.stack([px, zeros, pz], dim=-1))
         extents_l.append(torch.stack(
             [torch.full_like(px, half), zeros, torch.full_like(px, half)],
@@ -105,8 +119,11 @@ def select_nodes(settings: TerrainSettings, camera_pos: torch.Tensor,
     sel = torch.stack(sel_masks)
     lods = (L - torch.arange(L + 1, dtype=torch.int32, device=dev))
     lods = lods[:, None, None].expand(sel.shape)
-    return _pack_instances(settings, sel, torch.stack(positions),
-                           torch.stack(extents_l), lods)
+    instances = _pack_instances(settings, sel, torch.stack(positions),
+                                torch.stack(extents_l), lods)
+    return instances, SelectionDebug(selected=sel,
+                                     culled=torch.stack(cull_masks),
+                                     origin=torch.stack(origins))
 
 
 def _compact(mask: torch.Tensor, cap: int, *fields: torch.Tensor):
@@ -134,6 +151,26 @@ def _pack_instances(settings: TerrainSettings, sel, pos, ext, lods
     return SelectedInstances(position, extents, lod, valid, count)
 
 
+def single_tile_instances(settings: TerrainSettings, device=None
+                          ) -> SelectedInstances:
+    """One root-node instance covering the whole surface (BASELINE.md
+    config 1: a single flat tile, no LOD machinery), for
+    ``Renderer.render_locked``."""
+    cap = settings.max_instances
+    half = settings.surface_size / 2.0
+    extents = torch.zeros((cap, 3), dtype=torch.float32, device=device)
+    extents[0, 0] = half
+    extents[0, 2] = half
+    lod = torch.zeros((cap,), dtype=torch.int32, device=device)
+    lod[0] = settings.num_lods
+    valid = torch.zeros((cap,), dtype=torch.bool, device=device)
+    valid[0] = True
+    return SelectedInstances(
+        position=torch.zeros((cap, 3), dtype=torch.float32, device=device),
+        extents=extents, lod=lod, valid=valid,
+        count=torch.tensor(1, dtype=torch.int32, device=device))
+
+
 def select_all_surfaces(settings: TerrainSettings, camera_pos: torch.Tensor,
                         frustum_planes: torch.Tensor,
                         lod_ranges: torch.Tensor) -> SelectedInstances:
@@ -141,7 +178,8 @@ def select_all_surfaces(settings: TerrainSettings, camera_pos: torch.Tensor,
     (TerrainPass.cpp:97-110), merged into one instance array."""
     nps = settings.num_surfaces_per_side
     if nps == 1:
-        return select_nodes(settings, camera_pos, frustum_planes, lod_ranges)
+        return select_nodes(settings, camera_pos, frustum_planes,
+                            lod_ranges)[0]
     results = []
     for i in range(nps * nps):
         x = (-0.5 * (nps - 1) + i % nps) * settings.surface_size
@@ -149,7 +187,7 @@ def select_all_surfaces(settings: TerrainSettings, camera_pos: torch.Tensor,
         loc = torch.tensor([x, 0.0, z], dtype=torch.float32,
                            device=camera_pos.device)
         results.append(select_nodes(settings, camera_pos, frustum_planes,
-                                    lod_ranges, surface_location=loc))
+                                    lod_ranges, surface_location=loc)[0])
     cap = settings.max_instances
     valid = torch.cat([r.valid for r in results])
     count = sum(r.count for r in results)
