@@ -94,13 +94,31 @@ Phases, each printing one line and raising on failure:
     on the mesh-top field's compact triangles (one instance), B2 at the
     shadow-depth light pass, with times, pairs and bounds; the "xla" and
     "pallas" backends at 256x128 with the loaded scene (ids equal, depth
-    1e-6, attrs 3e-4); the editor's CUDA-event frame times.
+    1e-6, attrs 3e-4); the editor's CUDA-event frame times;
+14. sharded path: ``parallel.sharded.render_frames_sharded`` at 1920x1152
+    (the horizon renderer of phase 6 without its prepass cache, as the
+    JAX package's sharded path runs): (a) the card's own (1, 1) mesh, 8
+    cameras, frames and overflow bit-identical to ``Renderer.render``;
+    (b) three bands on one card, ``["cuda:0"] * 6`` as (frame 2, tile 3),
+    6 cameras with eye adaptation, each frame within tests/test_sharded.py's
+    bound of a ``render_adaptive`` chain per 3-frame chunk (under 1e-4 of
+    the pixels off by more than 2e-3), the adapted luminance equal across
+    bands and within 1e-5 of the chain; (c) map mode at (1, 3), 2 cameras,
+    the same bound against single frames, B2 once a band; (d)
+    ``two_phase`` at (1, 3), frames bit-identical to the single-phase
+    banded frames; launches counted per run (B1 runs twice a band in
+    horizon mode: the mesh-top field and the main raster); (e) B1, B3a,
+    the filter and B3b at band 1 of 3 and B2 at the map path's light pass
+    against their plain versions, timed as in phases 3, 4 and 8; a
+    ``sharded`` JSON line with the CUDA-event frame times.
 
 Each path's kernel launches are counted from 0 just before it runs. Then
 one JSON line with each kernel's launches (on its path: B1 and B2 on the
 map path, B3a and B3b on the two-phase path; B1 and B2 also carry the
 editor path's launches and numbers under ``editor_launches`` and
-``editor``), and its error, times and
+``editor``, and each kernel the sharded path's launches and its band
+numbers under ``sharded_launches`` and ``sharded``), and its error, times
+and
 bound at camera 13, with each camera's under ``cameras`` (B1's at the
 map path's inputs, B3a's and B3b's at the horizon path's), and for B1, B2
 and B3a the pairs their block test evaluates (``evaluated_pairs``) beside
@@ -172,6 +190,19 @@ EDITOR_SCRIPT = [
 EDITOR_KERNEL_FRAMES = (0, 1)       # renders whose cameras B1 is held at
 BACKEND_SIZE = (256, 128)           # the xla-vs-pallas comparison's frame
 ATTR_TOL = 1e-5   # kernel and plain round every plane op the same way
+# phase 14: the sharded screen-band path. 1152 rows split into 1, 3 or 9
+# bands of whole 128-row supertiles; one card runs a band on each entry
+# of a mesh that repeats it
+SHARD_CAMERAS = tuple(range(0, 64, 8))         # (a), the (1, 1) mesh
+SHARD_ADAPT_CAMERAS = (0, 11, 22, 33, 44, 55)  # (b), (frame 2, tile 3)
+SHARD_FEW_CAMERAS = (0, 13)                    # (c) and (d), (1, 3)
+SHARD_BANDS = 3
+SHARD_DT = 0.1                                 # the JAX tests' step
+# tests/test_sharded.py:46-52: rebased planes (c + b*y0) may flip exact
+# silhouette pixels, so under 1e-4 of a frame's pixels may differ by more
+# than 2e-3 in a channel; the bands' luminance sums add in another order
+SHARD_PIXEL_TOL, SHARD_PIXEL_SHARE = 2e-3, 1e-4
+SHARD_LUM_RTOL = 1e-5
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -726,110 +757,116 @@ def phase_modes_kernel(r, params, prepass, cams) -> None:
             f"to plain and to B1's")
 
 
-def phase_two_phase_kernels(r, params, prepass, cams):
-    """Kernels B3a, the winner filter and B3b at the horizon path's inputs:
-    B3a's z and id bitwise equal to its plain version and to B1's, the
-    filter kernel's work list and live (item, cell) pairs equal to its plain
-    version, B3b's attrs bitwise equal to its plain version and to B1's,
-    the two-phase raster equal to B1; CUDA-event times of B3a, the filter,
-    B3b, the whole two-phase raster and B1. Returns the JSON numbers of B3a
-    and B3b (with the filter's)."""
+def two_phase_vs_plain(label: str, packed, work, W: int, H: int, tile: int,
+                       cells: dict):
+    """Kernels B3a, the winner filter and B3b at (``packed``, ``work``), a
+    W x H target: B3a's z and id bitwise equal to its plain version and to
+    B1's, the filter kernel's work list and live (item, cell) pairs equal
+    to its plain version, B3b's attrs bitwise equal to its plain version
+    and to B1's, the two-phase raster equal to B1; CUDA-event times of
+    B3a, the filter, B3b, the whole two-phase raster and B1. Returns the
+    JSON numbers of B3a and of B3b (with the filter's)."""
     import torch
 
     from vrenderer_tpu_torch.ops import raster_cuda
 
+    T = packed.vis.shape[1]
+    b1 = raster_cuda.rasterize(packed, work, W, H, tile)
+    z, ids = raster_cuda.rasterize_zid(packed, work, W, H, tile)
+    zp, idp = raster_cuda.rasterize_zid_plain(packed, work, W, H, tile)
+    if not (torch.equal(z, zp) and torch.equal(ids, idp)):
+        raise RuntimeError(f"{label}: B3a differs from plain")
+    if not (torch.equal(z, b1[0]) and torch.equal(ids, b1[1])):
+        raise RuntimeError(f"{label}: B3a differs from B1's z/id")
+    before = raster_cuda.filter_work_to_winners.launches
+    work2, live = raster_cuda.filter_work_to_winners(work, ids, T, W, H,
+                                                     tile, **cells)
+    torch.cuda.synchronize()
+    if raster_cuda.filter_work_to_winners.launches != before + 1:
+        raise RuntimeError("the filter wrapper did not count its launch")
+    wp, lp = raster_cuda.filter_work_to_winners_plain(work, ids, T, W, H,
+                                                      tile, **cells)
+    if not (torch.equal(work2.items, wp.items) and torch.equal(live, lp)
+            and torch.equal(work2.num_items, wp.num_items)):
+        raise RuntimeError(f"{label}: the filter kernel differs from plain")
+    attrs = raster_cuda.rasterize_resolve(packed, work2, live, ids, W, H,
+                                          tile, **cells)
+    ap = raster_cuda.rasterize_resolve_plain(packed, work2, live, ids, W, H,
+                                             tile, **cells)
+    if not torch.equal(attrs, ap):
+        raise RuntimeError(f"{label}: B3b differs from plain")
+    if not torch.equal(attrs, b1[2]):
+        raise RuntimeError(f"{label}: B3b differs from B1's attrs")
+    two = raster_cuda.rasterize_two_phase(packed, work, W, H, tile,
+                                          reverse_z=False, **cells)
+    if not all(torch.equal(a, b) for a, b in zip(two, b1)):
+        raise RuntimeError(f"{label}: two-phase differs from B1")
+
+    t = {
+        "b3a": cuda_ms(lambda: raster_cuda.rasterize_zid(
+            packed, work, W, H, tile), 20),
+        "filter": cuda_ms(lambda: raster_cuda.filter_work_to_winners(
+            work, ids, T, W, H, tile, **cells), 20),
+        "b3b": cuda_ms(lambda: raster_cuda.rasterize_resolve(
+            packed, work2, live, ids, W, H, tile, **cells), 20),
+        "two_phase": cuda_ms(lambda: raster_cuda.rasterize_two_phase(
+            packed, work, W, H, tile, **cells), 20),
+        "b1": cuda_ms(lambda: raster_cuda.rasterize(
+            packed, work, W, H, tile), 20),
+        "b3a_plain": cuda_ms(lambda: raster_cuda.rasterize_zid_plain(
+            packed, work, W, H, tile), 3, queued=False),
+        "filter_plain": cuda_ms(
+            lambda: raster_cuda.filter_work_to_winners_plain(
+                work, ids, T, W, H, tile, **cells), 20, queued=False),
+        "b3b_plain": cuda_ms(lambda: raster_cuda.rasterize_resolve_plain(
+            packed, work2, live, ids, W, H, tile, **cells), 3,
+            queued=False),
+    }
+    used = int((work.items[:, 0] >= 0).sum())
+    n_live = int(live.sum())
+    n_px = int((ids >= 0).sum())
+    in_bytes, pairs = raster_work(packed.vis, work, W, H, tile)
+    b_zid = bound(in_bytes + W * H * 8, pairs["covered_pairs"] * PAIR_OPS)
+    b_res = bound(W * H * (4 + 32) + winner_bytes(ids) + live.numel()
+                  + work2.items.numel() * 4, n_px * RESOLVE_OPS)
+    # the filter reads the ids and the work list, writes both outputs
+    b_fil = bound(W * H * 4 + work.items.numel() * 8 + live.numel(), 0)
+    log(f"two-phase kernels {label}: B3a z/id equal to plain and "
+        f"B1, the filter's work list and live pairs equal to plain, B3b "
+        f"attrs equal to plain and B1, two-phase "
+        f"equal to B1; live (item, cell) pairs {n_live} of "
+        f"{used * live.shape[1]} "
+        f"({n_live / max(used * live.shape[1], 1):.4f}), live items "
+        f"{int((work2.items[:, 0] >= 0).sum())} of {used}; "
+        f"{pairs_text(pairs)}; "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+        + f"; bound B3a {b_zid['bound_ms']:.4f} ms "
+        f"({b_zid['bound_by']}), filter {b_fil['bound_ms']:.4f} ms "
+        f"({b_fil['bound_by']}), B3b {b_res['bound_ms']:.4f} ms "
+        f"({b_res['bound_by']}); chain / B1 "
+        f"{t['two_phase'] / t['b1']:.3f}")
+    return ({"max_abs_err": float((z - zp).abs().max()), "ms": t["b3a"],
+             "plain_ms": t["b3a_plain"], **b_zid, **pairs},
+            {"max_abs_err": float((attrs - ap).abs().max()), "ms": t["b3b"],
+             "plain_ms": t["b3b_plain"], **b_res, "filter_ms": t["filter"],
+             "filter_plain_ms": t["filter_plain"],
+             "filter_bound_ms": b_fil["bound_ms"],
+             "chain_ms": t["two_phase"], "b1_ms": t["b1"]})
+
+
+def phase_two_phase_kernels(r, params, prepass, cams):
+    """``two_phase_vs_plain`` at the horizon path's inputs. Returns the
+    JSON numbers of B3a and B3b (with the filter's)."""
     cfg = r.config
     rs = cfg.raster
-    W, H, tile = cfg.width, cfg.height, rs.tile_w
     cells = dict(sub_h=rs.subtile_h, win_w=rs.win_w)
     zid_cam, res_cam = [], []
     for i in KERNEL_CAMERAS:
-        packed, work = r.raster_inputs(cams.frame(i), params, prepass)
-        T = packed.vis.shape[1]
-        b1 = raster_cuda.rasterize(packed, work, W, H, tile)
-        z, ids = raster_cuda.rasterize_zid(packed, work, W, H, tile)
-        zp, idp = raster_cuda.rasterize_zid_plain(packed, work, W, H, tile)
-        if not (torch.equal(z, zp) and torch.equal(ids, idp)):
-            raise RuntimeError(f"camera {i}: B3a differs from plain")
-        if not (torch.equal(z, b1[0]) and torch.equal(ids, b1[1])):
-            raise RuntimeError(f"camera {i}: B3a differs from B1's z/id")
-        before = raster_cuda.filter_work_to_winners.launches
-        work2, live = raster_cuda.filter_work_to_winners(work, ids, T, W, H,
-                                                         tile, **cells)
-        torch.cuda.synchronize()
-        if raster_cuda.filter_work_to_winners.launches != before + 1:
-            raise RuntimeError("the filter wrapper did not count its launch")
-        wp, lp = raster_cuda.filter_work_to_winners_plain(work, ids, T, W, H,
-                                                          tile, **cells)
-        if not (torch.equal(work2.items, wp.items) and torch.equal(live, lp)
-                and torch.equal(work2.num_items, wp.num_items)):
-            raise RuntimeError(f"camera {i}: the filter kernel differs from "
-                               f"plain")
-        attrs = raster_cuda.rasterize_resolve(packed, work2, live, ids, W, H,
-                                              tile, **cells)
-        ap = raster_cuda.rasterize_resolve_plain(packed, work2, live, ids, W,
-                                                 H, tile, **cells)
-        if not torch.equal(attrs, ap):
-            raise RuntimeError(f"camera {i}: B3b differs from plain")
-        if not torch.equal(attrs, b1[2]):
-            raise RuntimeError(f"camera {i}: B3b differs from B1's attrs")
-        two = raster_cuda.rasterize_two_phase(packed, work, W, H, tile,
-                                              reverse_z=False, **cells)
-        if not all(torch.equal(a, b) for a, b in zip(two, b1)):
-            raise RuntimeError(f"camera {i}: two-phase differs from B1")
-
-        t = {
-            "b3a": cuda_ms(lambda: raster_cuda.rasterize_zid(
-                packed, work, W, H, tile), 20),
-            "filter": cuda_ms(lambda: raster_cuda.filter_work_to_winners(
-                work, ids, T, W, H, tile, **cells), 20),
-            "b3b": cuda_ms(lambda: raster_cuda.rasterize_resolve(
-                packed, work2, live, ids, W, H, tile, **cells), 20),
-            "two_phase": cuda_ms(lambda: raster_cuda.rasterize_two_phase(
-                packed, work, W, H, tile, **cells), 20),
-            "b1": cuda_ms(lambda: raster_cuda.rasterize(
-                packed, work, W, H, tile), 20),
-            "b3a_plain": cuda_ms(lambda: raster_cuda.rasterize_zid_plain(
-                packed, work, W, H, tile), 3, queued=False),
-            "filter_plain": cuda_ms(
-                lambda: raster_cuda.filter_work_to_winners_plain(
-                    work, ids, T, W, H, tile, **cells), 20, queued=False),
-            "b3b_plain": cuda_ms(lambda: raster_cuda.rasterize_resolve_plain(
-                packed, work2, live, ids, W, H, tile, **cells), 3,
-                queued=False),
-        }
-        used = int((work.items[:, 0] >= 0).sum())
-        n_live = int(live.sum())
-        n_px = int((ids >= 0).sum())
-        in_bytes, pairs = raster_work(packed.vis, work, W, H, tile)
-        b_zid = bound(in_bytes + W * H * 8, pairs["covered_pairs"] * PAIR_OPS)
-        b_res = bound(W * H * (4 + 32) + winner_bytes(ids) + live.numel()
-                      + work2.items.numel() * 4, n_px * RESOLVE_OPS)
-        # the filter reads the ids and the work list, writes both outputs
-        b_fil = bound(W * H * 4 + work.items.numel() * 8 + live.numel(), 0)
-        log(f"two-phase kernels camera {i}: B3a z/id equal to plain and "
-            f"B1, the filter's work list and live pairs equal to plain, B3b "
-            f"attrs equal to plain and B1, two-phase "
-            f"equal to B1; live (item, cell) pairs {n_live} of "
-            f"{used * live.shape[1]} "
-            f"({n_live / max(used * live.shape[1], 1):.4f}), live items "
-            f"{int((work2.items[:, 0] >= 0).sum())} of {used}; "
-            f"{pairs_text(pairs)}; "
-            + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
-            + f"; bound B3a {b_zid['bound_ms']:.4f} ms "
-            f"({b_zid['bound_by']}), filter {b_fil['bound_ms']:.4f} ms "
-            f"({b_fil['bound_by']}), B3b {b_res['bound_ms']:.4f} ms "
-            f"({b_res['bound_by']}); chain / B1 "
-            f"{t['two_phase'] / t['b1']:.3f}")
-        zid_cam.append({"max_abs_err": float((z - zp).abs().max()),
-                        "ms": t["b3a"], "plain_ms": t["b3a_plain"], **b_zid,
-                        **pairs})
-        res_cam.append({"max_abs_err": float((attrs - ap).abs().max()),
-                        "ms": t["b3b"], "plain_ms": t["b3b_plain"], **b_res,
-                        "filter_ms": t["filter"],
-                        "filter_plain_ms": t["filter_plain"],
-                        "filter_bound_ms": b_fil["bound_ms"],
-                        "chain_ms": t["two_phase"], "b1_ms": t["b1"]})
+        zid, res = two_phase_vs_plain(
+            f"camera {i}", *r.raster_inputs(cams.frame(i), params, prepass),
+            cfg.width, cfg.height, rs.tile_w, cells)
+        zid_cam.append(zid)
+        res_cam.append(res)
     return per_camera(zid_cam), per_camera(res_cam)
 
 
@@ -1526,6 +1563,224 @@ def _phase_editor(device, card: str, tmp: str) -> tuple:
     return b1, b2, launched
 
 
+def sub_cameras(cams, idx):
+    """The flythrough cameras ``idx`` as one stacked Camera."""
+    from vrenderer_tpu_torch.camera import Camera
+
+    return Camera(*(v[list(idx)] for v in cams))
+
+
+def sharded_run(name: str, r, params, cams, mesh, **kw):
+    """``render_frames_sharded`` over ``mesh`` with the kernel launches
+    counted from 0 and CUDA events around the call: every frame finite, no
+    band overflowing. Returns (frames, overflow, adapted, ms a frame,
+    launches)."""
+    import torch
+
+    from vrenderer_tpu_torch.parallel import sharded
+
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    frames, ovf, adapted = sharded.render_frames_sharded(
+        r, cams, params, mesh, return_aux=True, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    launched = read_launches()
+    n = frames.shape[0]
+    ms = start.elapsed_time(end) / n
+    fin = bool(torch.isfinite(frames).all())
+    if not fin or bool(ovf.any()):
+        raise RuntimeError(f"sharded {name}: finite {fin}, overflow "
+                           f"{ovf.tolist()}")
+    log(f"sharded {name}: mesh {mesh.shape}, {n} frames of "
+        f"{tuple(frames.shape[1:])} finite, no band overflowing; "
+        f"{ms:.3f} ms a frame (CUDA events); launches {launched}")
+    return frames, ovf, adapted, ms, launched
+
+
+def single_frames(r, params, cams, idx, adapt=False):
+    """``Renderer.render`` (or, with ``adapt``, a ``render_adaptive``
+    chain from 0.5 over ``idx``) at each camera of ``idx``: (outputs,
+    adapted luminances, ms a frame from CUDA events)."""
+    import torch
+
+    outs, lums = [], []
+    lum = torch.tensor(0.5, device=r.device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in idx:
+        if adapt:
+            out, lum = r.render_adaptive(cams.frame(i), params, lum,
+                                         SHARD_DT)
+            lums.append(lum)
+        else:
+            out = r.render(cams.frame(i), params)
+        outs.append(out)
+    end.record()
+    torch.cuda.synchronize()
+    return outs, lums, start.elapsed_time(end) / len(idx)
+
+
+def band_share(name: str, frames, singles) -> float:
+    """The largest share, over the frames, of pixels whose channels differ
+    from the single frame's by more than SHARD_PIXEL_TOL; raises at
+    SHARD_PIXEL_SHARE or above."""
+    shares = [float(((f - s.ldr).abs().amax(-1) > SHARD_PIXEL_TOL)
+                    .float().mean()) for f, s in zip(frames, singles)]
+    if not max(shares) < SHARD_PIXEL_SHARE:
+        raise RuntimeError(f"sharded {name}: pixel shares {shares} over "
+                           f"{SHARD_PIXEL_TOL} (bound {SHARD_PIXEL_SHARE})")
+    return max(shares)
+
+
+def phase_sharded(device, card: str, params, cams) -> dict:
+    """Phase 14: the sharded screen-band path at 1920x1152 (the bench
+    renderer, horizon mode, boot cube, no prepass, as the JAX package's
+    sharded path takes none). (a) the card's own (1, 1) mesh: frames and
+    overflow bit-identical to ``Renderer.render``. (b) three bands on one
+    card, (frame 2, tile 3), eye adaptation on: frames within the band
+    bound of a ``render_adaptive`` chain per 3-frame chunk, the adapted
+    columns equal across bands and within SHARD_LUM_RTOL of the chain.
+    (c) map mode, (1, 3): frames within the band bound, B2 once a band.
+    (d) ``two_phase``, (1, 3): frames bit-identical to the single-phase
+    banded frames. Each run's launches are counted from 0 and checked.
+    (e) B1, B3a, the filter, B3b at band 1 of 3 and B2 at the map path's
+    light pass (the same in every band), against their plain versions.
+    Returns the ``sharded`` JSON numbers and the kernels' (e) numbers."""
+    import torch
+
+    from vrenderer_tpu_torch.config import RasterSettings
+    from vrenderer_tpu_torch.parallel import sharded
+
+    t0 = time.perf_counter()
+    r, _, _ = bench_renderer(device)
+    W, tile = WIDTH, r.config.raster.tile_w
+    band_h = HEIGHT // SHARD_BANDS
+    mesh3 = sharded.make_mesh([device] * SHARD_BANDS)
+    runs, shares, ms = {}, {}, {}
+
+    # (a) the card's own mesh: bit-identical to Renderer.render
+    mesh1 = sharded.make_mesh(n_devices=1)
+    idx = SHARD_CAMERAS
+    # warm-up (allocator, libraries) outside the counted and timed runs
+    sharded.render_frames_sharded(r, sub_cameras(cams, idx[:1]), params,
+                                  mesh1)
+    r.render(cams.frame(idx[0]), params)
+    frames, ovf, _, ms["mesh_1x1"], runs["a"] = sharded_run(
+        "(a) own mesh", r, params, sub_cameras(cams, idx), mesh1)
+    if runs["a"] != launches(raster=2 * len(idx)):
+        raise RuntimeError(f"sharded (a) launches {runs['a']}")
+    singles, _, ms["single"] = single_frames(r, params, cams, idx)
+    for k, (f, o, s) in enumerate(zip(frames, ovf, singles)):
+        if not (torch.equal(f, s.ldr) and bool(o[0]) == bool(s.overflow)):
+            raise RuntimeError(f"sharded (a) camera {idx[k]}: differs from "
+                               f"Renderer.render")
+    log(f"sharded (a): {len(idx)} frames over {mesh1.shape} bit-identical "
+        f"to Renderer.render (ldr, overflow)")
+
+    # (b) three bands on one card, two frame rows, adaptation on
+    idx = SHARD_ADAPT_CAMERAS
+    mesh23 = sharded.make_mesh([device] * 6, frame_axis=2)
+    frames, _, adapted, ms["mesh_2x3_adapt"], runs["b"] = sharded_run(
+        "(b) adapting", r, params, sub_cameras(cams, idx), mesh23,
+        adapted_lum=0.5, dt=SHARD_DT)
+    if runs["b"] != launches(raster=2 * len(idx) * SHARD_BANDS):
+        raise RuntimeError(f"sharded (b) launches {runs['b']}")
+    half = len(idx) // 2
+    chain, lums = [], []
+    for part in (idx[:half], idx[half:]):
+        outs, ls, _ = single_frames(r, params, cams, part, adapt=True)
+        chain += outs
+        lums += ls
+    shares["b"] = band_share("(b)", frames, chain)
+    lum = torch.stack(lums)
+    if not torch.equal(adapted, adapted[:, :1].expand_as(adapted)):
+        raise RuntimeError("sharded (b): bands disagree on the adapted "
+                           "luminance")
+    lum_err = float(((adapted[:, 0] - lum).abs() / lum).max())
+    if not lum_err <= SHARD_LUM_RTOL:
+        raise RuntimeError(f"sharded (b): adapted luminance off the chain by "
+                           f"{lum_err} (relative)")
+    log(f"sharded (b): frames within the band bound of the render_adaptive "
+        f"chains (worst pixel share {shares['b']:.3g}), adapted columns "
+        f"equal, {adapted[:, 0].tolist()} vs chain {lum.tolist()} "
+        f"(relative error {lum_err:.3g})")
+
+    # (c) map mode
+    idx = SHARD_FEW_CAMERAS
+    few = sub_cameras(cams, idx)
+    n = len(idx) * SHARD_BANDS
+    rm, _, _ = bench_renderer(device, max_active=MAP_MAX_ACTIVE,
+                              shadow_mode="map", shadow_resolution=SHADOW_RES)
+    frames, _, _, ms["map_mesh_1x3"], runs["c"] = sharded_run(
+        "(c) map", rm, params, few, mesh3)
+    if runs["c"] != launches(raster=n, raster_depth=n):
+        raise RuntimeError(f"sharded (c) launches {runs['c']}")
+    singles, _, ms["map_single"] = single_frames(rm, params, cams, idx)
+    shares["c"] = band_share("(c)", frames, singles)
+    log(f"sharded (c): map frames within the band bound of the single "
+        f"frames (worst pixel share {shares['c']:.3g})")
+
+    # (d) two_phase against the single-phase banded frames, same mesh
+    one, _, _, ms["mesh_1x3"], _ = sharded_run("(d) single-phase", r, params,
+                                               few, mesh3)
+    singles, _, _ = single_frames(r, params, cams, idx)
+    shares["d_single_phase"] = band_share("(d) single-phase", one, singles)
+    r2, _, _ = bench_renderer(device, raster=RasterSettings(two_phase=True))
+    two, _, _, ms["mesh_1x3_two_phase"], runs["d"] = sharded_run(
+        "(d) two-phase", r2, params, few, mesh3)
+    if runs["d"] != launches(raster=n, raster_zid=n, raster_filter=n,
+                             raster_resolve=n):
+        raise RuntimeError(f"sharded (d) launches {runs['d']}")
+    if not torch.equal(two, one):
+        raise RuntimeError("sharded (d): two-phase banded frames differ from "
+                           "the single-phase banded frames")
+    log("sharded (d): two-phase banded frames bit-identical to the "
+        "single-phase banded frames, which are within the band bound of "
+        f"the single frames (worst pixel share {shares['d_single_phase']:.3g})")
+
+    # (e) the kernels against their plain versions on banded inputs
+    cam = cams.frame(JSON_CAMERA)
+    band = (band_h, band_h)                      # band 1 of 3
+    label = f"camera {JSON_CAMERA} band 1 of 3"
+    packed, work = r.raster_inputs(cam, params, band=band)
+    rs = r.config.raster
+    kern = {"raster": b1_vs_plain(f"(sharded horizon path) {label}", packed,
+                                  work, W, band_h, tile, layouts=False)}
+    kern["raster_zid"], kern["raster_resolve"] = two_phase_vs_plain(
+        f"(sharded horizon path) {label}", packed, work, W, band_h, tile,
+        dict(sub_h=rs.subtile_h, win_w=rs.win_w))
+    kern["raster_map"] = b1_vs_plain(
+        f"(sharded map path) {label}",
+        *rm.raster_inputs(cam, params, band=band), W, band_h, tile,
+        layouts=False)
+    kern["raster_depth"] = b2_vs_plain(
+        f"(sharded map path, every band's light pass) camera {JSON_CAMERA}",
+        *rm.light_raster_inputs(cam, params), SHADOW_RES, tile,
+        layouts=False)
+    del r, r2, rm, packed, work
+
+    total = Counter()
+    for run in runs.values():
+        total.update(run)
+    log(f"sharded frame times ({card}): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f" a frame (CUDA events, 1920x1152; phase "
+        f"{time.perf_counter() - t0:.1f} s)")
+    print(json.dumps({"sharded": {
+        "meshes": {"a": [1, 1], "b": [2, SHARD_BANDS],
+                   "c": [1, SHARD_BANDS], "d": [1, SHARD_BANDS]},
+        "frames": {"a": len(SHARD_CAMERAS), "b": len(SHARD_ADAPT_CAMERAS),
+                   "c": len(SHARD_FEW_CAMERAS), "d": len(SHARD_FEW_CAMERAS)},
+        "max_pixel_share": shares, "pixel_share_bound": SHARD_PIXEL_SHARE,
+        "adapted_rel_err": lum_err, "launches": runs, "ms": ms,
+        "card": card}}), flush=True)
+    return dict(total), kern
+
+
 def main() -> int:
     import torch
 
@@ -1595,27 +1850,36 @@ def main() -> int:
     del rm
     phase_map_cached(device, params, cams)
     ed_b1, ed_b2, ed_launches = phase_editor(device, card)
+    sh_launches, sh = phase_sharded(device, card, params, cams)
 
     src = "vrenderer_tpu_torch/csrc/raster.cu"
     print(json.dumps({"kernels": [
         {"name": "raster", "route": "cuda", "source": src,
          "replaces": "vrenderer_tpu/ops/raster_pallas.py:598",
          "launches": map_launches["raster"], **kern, "library_ms": None,
-         "editor_launches": ed_launches["raster"], "editor": ed_b1},
+         "editor_launches": ed_launches["raster"], "editor": ed_b1,
+         "sharded_launches": sh_launches["raster"], "sharded": sh["raster"],
+         "sharded_map": sh["raster_map"]},
         {"name": "raster_depth", "route": "cuda", "source": src,
          "replaces": "vrenderer_tpu/ops/raster_pallas.py:1121",
          "launches": map_launches["raster_depth"], **kern_d,
          "library_ms": None,
-         "editor_launches": ed_launches["raster_depth"], "editor": ed_b2},
+         "editor_launches": ed_launches["raster_depth"], "editor": ed_b2,
+         "sharded_launches": sh_launches["raster_depth"],
+         "sharded": sh["raster_depth"]},
         {"name": "raster_zid", "route": "cuda", "source": src,
          "replaces": "vrenderer_tpu/ops/raster_pallas.py:1209",
          "launches": two_launches["raster_zid"], **kern_zid,
-         "library_ms": None},
+         "library_ms": None, "sharded_launches": sh_launches["raster_zid"],
+         "sharded": sh["raster_zid"]},
         {"name": "raster_resolve", "route": "cuda", "source": src,
          "replaces": "vrenderer_tpu/ops/raster_pallas.py:1573",
          "launches": two_launches["raster_resolve"],
          "filter_launches": two_launches["raster_filter"], **kern_res,
-         "library_ms": None},
+         "library_ms": None,
+         "sharded_launches": sh_launches["raster_resolve"],
+         "sharded_filter_launches": sh_launches["raster_filter"],
+         "sharded": sh["raster_resolve"]},
     ]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

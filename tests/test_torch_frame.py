@@ -144,13 +144,12 @@ def test_render_launches_no_kernel_on_cpu():
 
 
 def test_unported_paths_raise():
-    """Screen bands point to ROADMAP.md instead of rendering; every raster
-    setting builds; the selection debug view and pipeline reload, ported
-    since, no longer raise (tests/test_torch_editor.py holds them to the
-    JAX package)."""
+    """Every path that once raised runs now: every raster setting builds;
+    a frame rendered as one screen band of its full height equals the
+    whole frame bit for bit (tests/test_torch_sharded.py holds the bands
+    to the JAX package); the selection debug view and pipeline reload run
+    (tests/test_torch_editor.py holds them to the JAX package)."""
     import dataclasses
-
-    import pytest
 
     from vrenderer_tpu_torch.config import RasterSettings
 
@@ -159,8 +158,10 @@ def test_unported_paths_raise():
                                                raster=RasterSettings(**kw)))
     r = _port_renderer()
     cam, params = cameras(GOLDEN_EYE, GOLDEN_TARGET)[1], frame_params_pair()[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r._frame_impl(cam, params, band=(0, 64))
+    whole = r._frame_impl(cam, params)
+    band = r._frame_impl(cam, params, band=(0, CFG.height))
+    for f in whole._fields:
+        assert torch.equal(getattr(band, f), getattr(whole, f)), f
     assert r.debug_selection(cam).selected.any()
     r.reload_pipelines()
 

@@ -30,12 +30,12 @@ def test_package_imports_without_jax():
     # config, camera, renderer, convert, app, capture, editor, entry,
     # utils.{math3d, native}, terrain.{heightmap, grid, quadtree},
     # ops.{texture, vertex, raster, raster_cuda, lighting, shadow, _build},
-    # models.{mesh, scene}, profiler.profiler,
+    # models.{mesh, scene}, profiler.profiler, parallel.sharded,
     # examples.{hello_triangle, walkthrough} and the subpackages
     names = proc.stdout.split()
-    assert len(names) >= 31
+    assert len(names) >= 33
     for m in ("editor", "entry", "examples.hello_triangle",
-              "examples.walkthrough", "models.scene"):
+              "examples.walkthrough", "models.scene", "parallel.sharded"):
         assert f"vrenderer_tpu_torch.{m}" in names
 
 

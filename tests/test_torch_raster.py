@@ -3,6 +3,9 @@ mode) and its XLA oracle, on the same triangle setup, and the work list's
 count and overflow drop. The semantics the CUDA kernel must keep (ties,
 -0.0, NaN, scissor) are in tests/test_torch_raster_kernel.py."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,13 +27,21 @@ I = JSET.max_instances
 
 
 def _scene(eye, target):
-    """The terrain scene of tests/test_raster_pallas.py."""
+    """The terrain scene of tests/test_raster_pallas.py. The JAX stages
+    (view, selection, vertex stage, setup) run as one jitted computation:
+    one compile instead of the eager stages' many (about 15 s a process),
+    and both packages rasterize the same jitted setup."""
     rng = np.random.default_rng(0)
     hm = (0.5 + 0.45 * np.sin(np.linspace(0, 6, 64))[None, :]
           * np.cos(np.linspace(0, 5, 64))[:, None]).astype(np.float32)
     alb = rng.random((64, 64, 3)).astype(np.float32)
     shad = rng.random((64, 64)).astype(np.float32)
     jcam, _ = cameras(eye, target)
+    return _jax_scene(jcam, hm, alb, shad)
+
+
+@jax.jit
+def _jax_scene(jcam, hm, alb, shad):
     vc = jcamera.make_view_constants(jcam, W, H, 60.0, 0.1, 1000.0)
     inst, _ = jquadtree.select_nodes(
         JSET, jcam.eye, jmath3d.frustum_planes(vc["world_to_clip"]),
@@ -55,7 +66,10 @@ def _port_work(inst, vout, vc, max_work):
                                        dist)
 
 
+@functools.partial(jax.jit, static_argnames="max_work")
 def _jax_work(inst, vout, vc, packed, max_work):
+    """JAX's instance bboxes and work list, jitted (one compile instead of
+    the eager ops' many)."""
     bbox, usable, dist = raster_pallas.instance_screen_bbox(
         vout.world, vc["world_to_clip"], W, H, inst.valid)
     return raster_pallas.build_work_list(
@@ -67,15 +81,32 @@ _VIEWS = {"frontal": ([0.0, 20.0, 40.0], [0.0, 0.0, 0.0]),
           "oblique": ([25.0, 8.0, 25.0], [-10.0, 2.0, -10.0])}
 
 
+@functools.lru_cache(maxsize=None)
+def _view_scene(view):
+    """``_scene`` of one of _VIEWS, built once per test process."""
+    return _scene(*_VIEWS[view])
+
+
+@functools.lru_cache(maxsize=None)
+def _oracles(view, **mode):
+    """(JAX oracle, port oracle) outputs on ``view``'s setup, computed once
+    per test process for each ``mode`` (reverse_z, wire_px); callers only
+    read them."""
+    setup = _view_scene(view)[2]
+    return (jraster.rasterize_xla(setup, W, H, tile=(8, 128), batch=64,
+                                  **mode),
+            traster.rasterize_xla(traster.TriSetup(*(t(x) for x in setup)),
+                                  W, H, batch=64, **mode))
+
+
 @pytest.mark.parametrize("view", sorted(_VIEWS))
 def test_plain_raster_matches_pallas_and_oracle(view):
     """Bounds of tests/test_raster_pallas.py:80-84: ids exact, z 1e-6
     (both evaluate a*px + b*py + c in float32), attrs 3e-4 (the attribute
     planes of tiny distant triangles cancel; the oracle sums them through
     a matmul in another order)."""
-    inst, vout, setup, vc = _scene(*_VIEWS[view])
-    z_x, id_x, at_x = jraster.rasterize_xla(setup, W, H, tile=(8, 128),
-                                            batch=64)
+    inst, vout, setup, vc = _view_scene(view)
+    z_x, id_x, at_x = _oracles(view)[0]
     packed = raster_pallas.pack_tri_data(setup, I, T, tri_batch=64)
     work = _jax_work(inst, vout, vc, packed, 256)
     z_p, id_p, at_p, _ = raster_pallas.rasterize_pallas(
@@ -106,7 +137,7 @@ def test_work_list_count_and_overflow_drop_match(max_work):
     """num_work_items counts one dummy per supertile plus every overlapping
     (usable instance, supertile) pair; on overflow the same items survive
     as in the JAX work list."""
-    inst, vout, setup, vc = _scene(*_VIEWS["oblique"])
+    inst, vout, setup, vc = _view_scene("oblique")
     packed = raster_pallas.pack_tri_data(setup, I, T, tri_batch=64)
     work = _jax_work(inst, vout, vc, packed, max_work)
     twork = _port_work(inst, vout, vc, max_work)
@@ -123,11 +154,7 @@ def test_work_list_count_and_overflow_drop_match(max_work):
 
 @pytest.mark.parametrize("view", sorted(_VIEWS))
 def test_oracle_port_matches_jax_oracle(view):
-    _, _, setup, _ = _scene(*_VIEWS[view])
-    z_x, id_x, at_x = jraster.rasterize_xla(setup, W, H, tile=(8, 128),
-                                            batch=64)
-    z, ids, attrs = traster.rasterize_xla(
-        traster.TriSetup(*(t(x) for x in setup)), W, H, batch=64)
+    (z_x, id_x, at_x), (z, ids, attrs) = _oracles(view)
     cov = np.asarray(id_x) >= 0
     np.testing.assert_array_equal(ids.numpy(), np.asarray(id_x))
     np.testing.assert_allclose(z.numpy()[cov], np.asarray(z_x)[cov], atol=1e-6)
@@ -145,11 +172,7 @@ def test_oracle_modes_match_jax_oracle(view, mode):
     lowest id) and wireframe fill (within wire_px of an edge) against the
     JAX oracle's: ids exact, z 1e-6 where covered and the background
     (+-F32_FAR) exact elsewhere, attrs 3e-4."""
-    _, _, setup, _ = _scene(*_VIEWS[view])
-    z_x, id_x, at_x = jraster.rasterize_xla(setup, W, H, tile=(8, 128),
-                                            batch=64, **mode)
-    z, ids, attrs = traster.rasterize_xla(
-        traster.TriSetup(*(t(x) for x in setup)), W, H, batch=64, **mode)
+    (z_x, id_x, at_x), (z, ids, attrs) = _oracles(view, **mode)
     cov = np.asarray(id_x) >= 0
     assert 0.05 < cov.mean() < 1.0
     np.testing.assert_array_equal(ids.numpy(), np.asarray(id_x))
@@ -159,8 +182,7 @@ def test_oracle_modes_match_jax_oracle(view, mode):
                                atol=3e-4)
     # the mode changes the result: reverse-z picks other winners, the
     # wireframe leaves triangle interiors open
-    _, plain_ids, _ = traster.rasterize_xla(
-        traster.TriSetup(*(t(x) for x in setup)), W, H, batch=64)
+    _, plain_ids, _ = _oracles(view)[1]
     assert (ids != plain_ids).any()
     if mode.get("wire_px"):
         assert (ids.numpy() >= 0).sum() < (plain_ids.numpy() >= 0).sum()

@@ -36,8 +36,11 @@ MAX_WORK = 256
 def _light_scene():
     """The map-mode light pass's triangles for the golden camera: light
     selection and vertex geometry from the JAX renderer, set up in the
-    sheared light view."""
+    sheared light view, jitted as one computation (one compile instead of
+    the eager stages' many)."""
     import dataclasses
+
+    import jax
 
     from vrenderer_tpu.renderer import Renderer as JRenderer
     from vrenderer_tpu.terrain import heightmap as jh
@@ -49,16 +52,22 @@ def _light_scene():
                    hm, jh.procedural_albedo(hm), raster_backend="xla")
     jcam, _ = cameras([0.0, 25.0, 45.0], [0.0, 0.0, 0.0])
     jp, _ = frame_params_pair()
-    wtc = jshadow.sun_shear_matrices(jp.light_direction, 64.0, jp.max_height,
-                                     res)[0]
-    inst, eye, ranges = jr._light_select(jp, wtc, jcam.eye)
-    geom = jvertex.vertex_geometry(JSET, inst, eye, hm, jp.max_height, ranges)
-    _, tris = jgrid.make_grid(JSET.grid_size)
-    world = geom.world
-    setup = jraster.setup_triangles(
-        world, jnp.zeros(world.shape[:3] + (8,), jnp.float32), inst.valid,
-        tris, wtc, res, res)
-    return inst, world, setup, wtc, res, res
+
+    @jax.jit
+    def light(jp, eye):
+        wtc = jshadow.sun_shear_matrices(jp.light_direction, 64.0,
+                                         jp.max_height, res)[0]
+        inst, sel_eye, ranges = jr._light_select(jp, wtc, eye)
+        geom = jvertex.vertex_geometry(JSET, inst, sel_eye, hm,
+                                       jp.max_height, ranges)
+        _, tris = jgrid.make_grid(JSET.grid_size)
+        world = geom.world
+        setup = jraster.setup_triangles(
+            world, jnp.zeros(world.shape[:3] + (8,), jnp.float32),
+            inst.valid, tris, wtc, res, res)
+        return inst, world, setup, wtc
+
+    return light(jp, jcam.eye) + (res, res)
 
 
 def _inputs(view):

@@ -608,11 +608,12 @@ def test_adversarial_inputs_match_per_pixel_reference(device, case):
     packed, work, w, h = adversarial_inputs(case, device)
     vis = packed.vis.cpu().numpy()
     items = work.items.cpu().numpy()
+    modes = ((False, 0.0), (True, 0.0), (False, 1.0))
+    refs = {m: _per_pixel_reference(vis, items, w, h, *m) for m in modes}
     for region, cluster in ((64, 1), (64, 2), (64, 16), (128, 8)):
         kw = {"region": region, "cluster": cluster}
-        for reverse_z, wire_px in ((False, 0.0), (True, 0.0), (False, 1.0)):
-            z_ref, id_ref = _per_pixel_reference(vis, items, w, h, reverse_z,
-                                                 wire_px)
+        for reverse_z, wire_px in modes:
+            z_ref, id_ref = refs[reverse_z, wire_px]
             z, ids, attrs = (x.cpu().numpy() for x in raster_cuda.rasterize(
                 packed, work, w, h, reverse_z=reverse_z, wire_px=wire_px,
                 **kw))

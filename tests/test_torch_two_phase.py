@@ -8,7 +8,9 @@ bit (raster_pallas.py:1229-1231, 1587-1589): on the two views, a ragged
 frame and whole renderer frames."""
 
 import dataclasses
+import functools
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -24,7 +26,10 @@ MAX_WORK = 256
 BIG_ID = raster_pallas._BIG_ID
 
 
+@functools.partial(jax.jit, static_argnames="sub_h")
 def _jax_work(inst, vout, vc, packed, sub_h):
+    """JAX's work list with cells of ``sub_h`` rows, jitted (one compile
+    instead of the eager ops' many)."""
     bbox, usable, dist = raster_pallas.instance_screen_bbox(
         vout.world, vc["world_to_clip"], W, H, inst.valid)
     return raster_pallas.build_work_list(

@@ -7,7 +7,9 @@ elementwise passes, ported from ``vrenderer_tpu.ops.lighting``.
   f0 = 0.01, roughness = 1 (terrain_ps.hlsl:76-79).
 * ``tonemap``: exposure + luminance Reinhard (or ACES / clamp).
 * ``adapt_exposure``: eye adaptation, the exposure scale ``tonemap`` is
-  given when the frame adapts (Renderer.cpp:188-189).
+  given when the frame adapts (Renderer.cpp:188-189), split at its one
+  whole-frame statistic (``luminance_sums``, ``adapt_from_sums``) for
+  frames rendered in screen bands.
 * ``sky_color``: drawn after tonemapping, as the reference does
   (Renderer.cpp:430-439).
 """
@@ -84,26 +86,29 @@ def tonemap(hdr: torch.Tensor, exposure=1.0, operator: str = "reinhard"
     return torch.clamp(c * scale[..., None], 0.0, 1.0)
 
 
-def adapt_exposure(hdr: torch.Tensor, covered: torch.Tensor,
-                   adapted_lum: torch.Tensor, dt: float,
-                   speed_up: float = 1.0, speed_down: float = 1.0,
-                   min_lum: float = 0.02, max_lum: float = 4.0,
-                   middle_grey: float = 0.5):
-    """Eye adaptation: (new adapted luminance, exposure scale), both ()
-    tensors on the image's device.
-
-    The reference advances donut's ToneMappingPass every frame
-    (``AdvanceFrame(seconds)``, Renderer.cpp:188-189). As in the JAX
-    package: the geometric mean luminance of the covered pixels (the
-    background excluded), approached exponentially at separate up and down
-    rates over ``dt`` seconds, clamped to [min_lum, max_lum]; the scale is
-    ``middle_grey / new``. Nothing is read back to the host, so the carry
-    can thread through frames in flight. The JAX package's band path sums
-    across devices here (``axis_name``); that path is not ported."""
+def luminance_sums(hdr: torch.Tensor, covered: torch.Tensor
+                   ) -> torch.Tensor:
+    """The whole-frame statistic of eye adaptation over an image or a
+    screen band of one: (2,) float32, the covered pixels' count and the sum
+    of their log2 luminance. The bands of a frame add theirs (in band
+    order) into the frame's pair."""
     lum = 0.2126 * hdr[..., 0] + 0.7152 * hdr[..., 1] + 0.0722 * hdr[..., 2]
     logl = torch.log2(torch.clamp(lum, min=1e-6))
     n_cov = covered.sum(dtype=torch.float32)
     s_log = torch.where(covered, logl, torch.zeros_like(logl)).sum()
+    return torch.stack([n_cov, s_log])
+
+
+def adapt_from_sums(sums: torch.Tensor, adapted_lum: torch.Tensor,
+                    dt: float, speed_up: float = 1.0,
+                    speed_down: float = 1.0, min_lum: float = 0.02,
+                    max_lum: float = 4.0, middle_grey: float = 0.5):
+    """Eye adaptation from a frame's ``luminance_sums``: (new adapted
+    luminance, exposure scale), () tensors on the sums' device. The
+    geometric mean luminance of the covered pixels, approached
+    exponentially at separate up and down rates over ``dt`` seconds and
+    clamped to [min_lum, max_lum]; the scale is ``middle_grey / new``."""
+    n_cov, s_log = sums[0], sums[1]
     target = torch.exp2(s_log / torch.clamp(n_cov, min=1.0))
     target = torch.clamp(target, min_lum, max_lum)
     speed = torch.where(target > adapted_lum, speed_up, speed_down)
@@ -111,6 +116,23 @@ def adapt_exposure(hdr: torch.Tensor, covered: torch.Tensor,
     new_lum = torch.clamp(adapted_lum + (target - adapted_lum) * blend,
                           min_lum, max_lum)
     return new_lum, middle_grey / new_lum
+
+
+def adapt_exposure(hdr: torch.Tensor, covered: torch.Tensor,
+                   adapted_lum: torch.Tensor, dt: float, **kw):
+    """Eye adaptation of a whole image: (new adapted luminance, exposure
+    scale), both () tensors on the image's device; ``kw`` are
+    ``adapt_from_sums``'s rates and limits.
+
+    The reference advances donut's ToneMappingPass every frame
+    (``AdvanceFrame(seconds)``, Renderer.cpp:188-189); the statistic is
+    the JAX package's, the background excluded. Nothing is read back to
+    the host, so the carry can thread through frames in flight. A frame
+    rendered in screen bands (``parallel/sharded.py``) sums its bands'
+    ``luminance_sums`` first, where the JAX package sums across devices
+    (``axis_name``)."""
+    return adapt_from_sums(luminance_sums(hdr, covered), adapted_lum, dt,
+                           **kw)
 
 
 def srgb_encode(linear: torch.Tensor) -> torch.Tensor:

@@ -196,6 +196,34 @@ def setup_triangles(world, attrs, inst_valid, tri_indices, world_to_clip,
         w_eps))
 
 
+def shift_setup_y(setup: TriSetup, y0: float) -> TriSetup:
+    """Rebase a stacked setup's screen coefficients to the band that starts
+    at frame row ``y0``: every E(x, y) = a x + b y + c becomes
+    E'(x, y') = a x + b y' + (c + b y0), and the bbox rows shift by -y0.
+    The product and the sum are two operations, each rounded once, as in
+    the JAX package (one fused multiply-add would move exact silhouette
+    pixels)."""
+    edge = setup.edge.clone()
+    edge[..., 2] = setup.edge[..., 2] + setup.edge[..., 1] * y0
+    planes = setup.planes.clone()
+    planes[..., 2] = setup.planes[..., 2] + setup.planes[..., 1] * y0
+    bbox = setup.bbox - setup.bbox.new_tensor([0.0, y0, 0.0, y0])
+    return TriSetup(edge=edge, planes=planes, bbox=bbox, valid=setup.valid)
+
+
+def shift_components_y(comp: TriComponents, y0: float) -> TriComponents:
+    """``shift_setup_y`` on the component form. ``vert_clip`` stays: the
+    instance bounds are taken from it before the shift."""
+    e = list(comp.edge)
+    for k in range(3):
+        e[3 * k + 2] = e[3 * k + 2] + e[3 * k + 1] * y0
+    quant = tuple((a, b, c + b * y0) for a, b, c in comp.quant)
+    x0, by0, x1, by1 = comp.bbox
+    return TriComponents(edge=tuple(e), quant=quant,
+                         bbox=(x0, by0 - y0, x1, by1 - y0), valid=comp.valid,
+                         vert_clip=comp.vert_clip)
+
+
 def _affine(coef: torch.Tensor, px: torch.Tensor, py: torch.Tensor
             ) -> torch.Tensor:
     """a*px + b*py + c, left to right, one rounding per operation."""

@@ -29,8 +29,11 @@ The shadow phase has two modes (``FrameConfig.shadow_mode``):
 Eye adaptation (``render_adaptive``) and lock-view (``select``,
 ``render_locked``) compose with both modes and with a prepass;
 ``debug_selection`` returns the quadtree debug view's masks and
-``reload_pipelines`` drops the cached prepasses. The sharded band path
-raises NotImplementedError; ROADMAP.md queues it.
+``reload_pipelines`` drops the cached prepasses. A frame renders whole or
+as a horizontal screen band of the same projection (``_frame_impl(band=
+(y0, band_h))``, what ``parallel/sharded.py`` runs on each device of a
+mesh): geometry stays whole-frame, the setup is rebased to the band's
+rows, and the raster and image-space passes run over the band alone.
 """
 
 from __future__ import annotations
@@ -48,9 +51,6 @@ from vrenderer_tpu_torch.ops import (
 from vrenderer_tpu_torch.terrain import grid as gridmod
 from vrenderer_tpu_torch.terrain import quadtree
 from vrenderer_tpu_torch.utils import math3d
-
-_NOT_PORTED = "not ported yet; see ROADMAP.md (queue A)"
-
 
 class FrameParams(NamedTuple):
     """Per-frame knobs as tensors (the EditorParams/light analog,
@@ -112,6 +112,20 @@ def overflow_message(out: FrameOutput, renderer: "Renderer") -> str:
                      "max_active/max_work)")
     msg = "; ".join(parts) if parts else "overflow flag set (unknown cause)"
     return msg + " — output may be missing geometry"
+
+
+class _GBuffer(NamedTuple):
+    """The first half of a frame (or of a screen band of one), up to the
+    image that eye adaptation reads: what ``_finish_frame`` needs."""
+
+    hdr: torch.Tensor            # (h, W, 3)
+    covered: torch.Tensor        # (h, W) bool
+    z: torch.Tensor              # (h, W)
+    prim_id: torch.Tensor        # (h, W) int32
+    rays: torch.Tensor           # (h, W, 3) unit view rays
+    count: torch.Tensor          # () raw selection count
+    n_work: torch.Tensor         # () work items
+    shadow_overflow: torch.Tensor  # () int32
 
 
 class _ShadowInputs(NamedTuple):
@@ -192,6 +206,8 @@ class Renderer:
                                                 device=self.device)
         self._horizon_prepass_cache = None
         self._shadow_prepass_cache = None
+        # copies of this state on other devices (parallel/sharded.py)
+        self._band_replicas = {}
         self._prepare_scene(scene)
         rs = config.raster
         if raster_backend == "pallas" and rs.two_phase and not rs.wireframe:
@@ -339,23 +355,31 @@ class Renderer:
             lod=instances.lod[:ia], valid=instances.valid[:ia],
             count=instances.count)
 
-    def _bin(self, parts, wtc, width: int, height: int):
+    def _bin(self, parts, wtc, width: int, height: int, band=None):
         """Setup and binning of ``parts`` (world, attrs, valid, tri_idx),
-        instances in order: (TriSetup, instance count, work list)."""
+        instances in order: (TriSetup, instance count, work list).
+        ``band=(y0, band_h)``: the instance bounds come from the
+        whole-frame setup, then bounds and setup are rebased to the band's
+        rows and the work list covers ``band_h`` rows."""
         cfg = self.config
+        out_h = height if band is None else band[1]
         setups, bboxes, usables, dists = [], [], [], []
         for world, attrs, valid, tri_idx in parts:
             comp = raster.setup_components(world, attrs, valid, tri_idx, wtc,
                                            width, height)
             bbox, usable, dist = raster_cuda.instance_bbox_components(
                 comp, width, height, valid)
+            if band is not None:
+                y0 = float(band[0])
+                bbox = bbox - bbox.new_tensor([0.0, y0, 0.0, y0])
+                comp = raster.shift_components_y(comp, y0)
             setups.append(raster.stack_components(comp))
             bboxes.append(bbox)
             usables.append(usable)
             dists.append(dist)
         setup = raster.TriSetup(*(torch.cat(f) for f in zip(*setups)))
         work = raster_cuda.build_work_list(
-            torch.cat(bboxes), torch.cat(usables), width, height,
+            torch.cat(bboxes), torch.cat(usables), width, out_h,
             tile=cfg.raster.tile_w, max_work=self.max_work,
             order_key=torch.cat(dists))
         return setup, sum(p[0].shape[0] for p in parts), work
@@ -394,13 +418,13 @@ class Renderer:
         return parts, instances
 
     def _raster_inputs(self, vc: Dict[str, torch.Tensor], params: FrameParams,
-                       sh: _ShadowInputs, lock_instances=None):
+                       sh: _ShadowInputs, lock_instances=None, band=None):
         """Select -> vertex -> setup -> bin: (packed triangles, work list,
-        instances)."""
+        instances), rebased to ``band`` if given."""
         cfg = self.config
         parts, instances = self._raster_parts(vc, params, sh, lock_instances)
         setup, n_inst, work = self._bin(parts, vc["world_to_clip"],
-                                        cfg.width, cfg.height)
+                                        cfg.width, cfg.height, band)
         return raster_cuda.pack_setup(setup, n_inst), work, instances
 
     @staticmethod
@@ -412,44 +436,55 @@ class Renderer:
         return raster.TriSetup(*(torch.cat(f) for f in zip(*setups)))
 
     def _terrain_pass(self, vc, params, sh: _ShadowInputs,
-                      lock_instances=None):
-        """Raster products (z, prim_id, attrs, instances, work items)."""
+                      lock_instances=None, band=None):
+        """Raster products (z, prim_id, attrs, instances, work items) of
+        the frame, or of the ``band=(y0, band_h)`` rows of it."""
         cfg = self.config
         rs = cfg.raster
+        out_h = cfg.height if band is None else band[1]
         if self.raster_backend == "xla":
             # the JAX package's "xla" backend counts no work items
             parts, instances = self._raster_parts(vc, params, sh,
                                                   lock_instances)
+            setup = self._setup(parts, vc["world_to_clip"], cfg.width,
+                                cfg.height)
+            if band is not None:
+                setup = raster.shift_setup_y(setup, float(band[0]))
             z, prim_id, attrs = raster.rasterize_xla(
-                self._setup(parts, vc["world_to_clip"], cfg.width,
-                            cfg.height),
-                cfg.width, cfg.height, reverse_z=rs.reverse_z,
+                setup, cfg.width, out_h, reverse_z=rs.reverse_z,
                 wire_px=1.0 if rs.wireframe else 0.0)
             return (z, prim_id, attrs, instances,
                     torch.zeros((), dtype=torch.int64, device=self.device))
         packed, work, instances = self._raster_inputs(vc, params, sh,
-                                                      lock_instances)
+                                                      lock_instances, band)
         if rs.two_phase and not rs.wireframe:
             z, prim_id, attrs = raster_cuda.rasterize_two_phase(
-                packed, work, cfg.width, cfg.height, tile=rs.tile_w,
+                packed, work, cfg.width, out_h, tile=rs.tile_w,
                 sub_h=rs.subtile_h, win_w=rs.win_w, reverse_z=rs.reverse_z)
         else:
             z, prim_id, attrs = raster_cuda.rasterize(
-                packed, work, cfg.width, cfg.height, tile=rs.tile_w,
+                packed, work, cfg.width, out_h, tile=rs.tile_w,
                 reverse_z=rs.reverse_z,
                 wire_px=1.0 if rs.wireframe else 0.0)
         return z, prim_id, attrs, instances, work.num_items
 
-    def _view_rays(self, vc: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Unit world-space rays through every pixel, unprojected at the
-        far plane in full float32 (the JAX package runs this product at
+    def _view_rays(self, vc: Dict[str, torch.Tensor], band=None
+                   ) -> torch.Tensor:
+        """Unit world-space rays through every pixel of the frame, or of
+        its ``band=(y0, band_h)`` rows, unprojected at the far plane in
+        full float32 (the JAX package runs this product at
         Precision.HIGHEST: bf16 gave NaN rays on hardware)."""
         cfg = self.config
         dev = self.device
         x = (torch.arange(cfg.width, dtype=torch.float32, device=dev)
              + 0.5) / cfg.width
-        y = (torch.arange(cfg.height, dtype=torch.float32, device=dev)
-             + 0.5) / cfg.height
+        if band is None:
+            y = (torch.arange(cfg.height, dtype=torch.float32, device=dev)
+                 + 0.5) / cfg.height
+        else:
+            y0, band_h = band
+            y = (torch.arange(band_h, dtype=torch.float32, device=dev)
+                 + 0.5 + float(y0)) / cfg.height
         yy, xx = torch.meshgrid(1.0 - y * 2.0, x * 2.0 - 1.0, indexing="ij")
         one = torch.ones_like(xx)
         wpos = torch.stack([xx, yy, one, one], -1) @ vc["clip_to_world"]
@@ -570,17 +605,18 @@ class Renderer:
 
     def raster_inputs(self, camera: Camera,
                       params: Optional[FrameParams] = None,
-                      shadow_prepass=None):
+                      shadow_prepass=None, band=None):
         """(packed triangles, work list) that ``render`` hands the
-        rasterizer for this camera: for driving the kernel on its own. In
-        map mode without a prepass this runs the light pass too."""
+        rasterizer for this camera, or a frame rendered in screen bands
+        for its ``band=(y0, band_h)``: for driving the kernel on its own.
+        In map mode without a prepass this runs the light pass too."""
         if params is None:
             params = FrameParams.default(self.light, self.device)
         vc = self._view(camera)
         with torch.no_grad():
             packed, work, _ = self._raster_inputs(
                 vc, params, self._shadow_inputs(vc, params, None,
-                                                shadow_prepass))
+                                                shadow_prepass), band=band)
         return packed, work
 
     def _frame_impl(self, camera: Camera, params: FrameParams,
@@ -590,37 +626,62 @@ class Renderer:
         ``lock_instances``: a frozen selection (lock-view) in place of the
         main selection. ``adapt=(adapted_lum, dt)``: eye adaptation scales
         the exposure, and the frame returns (FrameOutput, new adapted
-        luminance). The JAX package's screen band is not ported yet."""
-        if band is not None:
-            raise NotImplementedError(f"screen bands: {_NOT_PORTED}")
-        cfg = self.config
+        luminance). ``band=(y0, band_h)``: only the rows [y0, y0 + band_h)
+        of the same frame (its adaptation then sees the band alone; the
+        sharded path instead runs the two halves, ``_gbuffer`` and
+        ``_finish_frame``, and adapts to the sum of the bands'
+        statistics)."""
+        g = self._gbuffer(camera, params, lock_instances, band, scene_xf,
+                          shadow_prepass)
+        exposure = params.exposure
+        if adapt is not None:
+            adapted_lum, dt = adapt
+            new_adapted, scale = lighting.adapt_exposure(g.hdr, g.covered,
+                                                         adapted_lum, dt)
+            exposure = exposure * scale
+        out = self._finish_frame(g, params, exposure)
+        if adapt is not None:
+            return out, new_adapted
+        return out
+
+    def _gbuffer(self, camera: Camera, params: FrameParams,
+                 lock_instances=None, band=None, scene_xf=None,
+                 shadow_prepass=None) -> _GBuffer:
+        """The frame up to its HDR image: view, shadow phase, geometry and
+        raster ("Terrain"), deferred lighting. With ``band`` the geometry
+        and the shadow phase are still the whole frame's; the raster and
+        the lighting cover the band's rows."""
         vc = self._view(camera)
         sh = self._shadow_inputs(vc, params, scene_xf, shadow_prepass,
                                  locked=lock_instances is not None)
 
         # "Terrain": geometry + visibility + interpolated G-buffer attrs
         z, prim_id, attrs, instances, n_work = self._terrain_pass(
-            vc, params, sh, lock_instances)
+            vc, params, sh, lock_instances, band)
         covered = (prim_id >= 0) & (params.render_terrain > 0.5)
         albedo = attrs[..., vertex.ATTR_ALBEDO]
         normal = attrs[..., vertex.ATTR_NORMAL]
         shadow_px = torch.clamp(attrs[..., vertex.ATTR_SHADOW], 0.0, 1.0)
-        rays = self._view_rays(vc)
+        rays = self._view_rays(vc, band)
 
-        # "Deferred Lighting", "ToneMapping", then "Sky" after tonemap
-        # (Renderer.cpp:417-439)
+        # "Deferred Lighting" (Renderer.cpp:417-428)
         hdr = lighting.deferred_lighting(
             albedo, normal, shadow_px, covered, -rays,
             params.light_direction, params.light_irradiance,
             params.light_color, params.ambient_intensity)
-        exposure = params.exposure
-        if adapt is not None:
-            adapted_lum, dt = adapt
-            new_adapted, scale = lighting.adapt_exposure(hdr, covered,
-                                                         adapted_lum, dt)
-            exposure = exposure * scale
-        ldr_linear = lighting.tonemap(hdr, exposure)
-        sky = lighting.sky_color(rays, params.light_direction)
+        return _GBuffer(hdr=hdr, covered=covered, z=z, prim_id=prim_id,
+                        rays=rays, count=instances.count, n_work=n_work,
+                        shadow_overflow=sh.overflow)
+
+    def _finish_frame(self, g: _GBuffer, params: FrameParams,
+                      exposure: torch.Tensor) -> FrameOutput:
+        """The frame from its HDR image on: "ToneMapping" at ``exposure``,
+        then "Sky" after tonemap (Renderer.cpp:429-439), the debug overlay
+        and the sRGB encode."""
+        cfg = self.config
+        covered, prim_id = g.covered, g.prim_id
+        ldr_linear = lighting.tonemap(g.hdr, exposure)
+        sky = lighting.sky_color(g.rays, params.light_direction)
         ldr_linear = torch.where(covered[..., None], ldr_linear, sky)
 
         # quadtree debug overlay: tint covered pixels by an instance hash
@@ -637,13 +698,13 @@ class Renderer:
 
         # "Blit": sRGB encode
         ldr = lighting.srgb_encode(ldr_linear)
-        depth = torch.where(covered, z, torch.ones_like(z))
-        count = instances.count
+        depth = torch.where(covered, g.z, torch.ones_like(g.z))
+        count, n_work = g.count, g.n_work
         work_ovf = n_work > self.max_work
         sel_ovf = count > self.max_active
-        shadow_ovf = sh.overflow > 0
-        out = FrameOutput(
-            ldr=ldr, hdr=hdr, depth=depth, prim_id=prim_id,
+        shadow_ovf = g.shadow_overflow > 0
+        return FrameOutput(
+            ldr=ldr, hdr=g.hdr, depth=depth, prim_id=prim_id,
             num_instances=torch.clamp(count, max=cfg.terrain.max_instances),
             num_work_items=n_work,
             overflow=work_ovf | sel_ovf | shadow_ovf,
@@ -652,9 +713,6 @@ class Renderer:
                            + 2 * sel_ovf.to(torch.int32)
                            + 4 * shadow_ovf.to(torch.int32)),
         )
-        if adapt is not None:
-            return out, new_adapted
-        return out
 
     def render(self, camera: Camera, params: Optional[FrameParams] = None,
                shadow_prepass=None) -> FrameOutput:
@@ -916,9 +974,11 @@ class Renderer:
     def reload_pipelines(self):
         """The shader hot-reload (m_ShaderReoladRequested, Renderer.cpp:
         226-231): drops what the renderer caches between frames, the
-        horizon and shadow-map prepasses, so that the next frame recomputes
-        them; it renders bit-identically. The CUDA kernels' library stays
-        loaded: a live process cannot unload it, and there is nothing to
+        horizon and shadow-map prepasses and the state copied to other
+        devices for screen bands, so that the next frame recomputes them; it
+        renders bit-identically. The CUDA kernels' library stays loaded: a
+        live process cannot unload it, and there is nothing to
         recompile."""
         self._horizon_prepass_cache = None
         self._shadow_prepass_cache = None
+        self._band_replicas = {}
