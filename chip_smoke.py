@@ -110,15 +110,40 @@ Phases, each printing one line and raising on failure:
     horizon mode: the mesh-top field and the main raster); (e) B1, B3a,
     the filter and B3b at band 1 of 3 and B2 at the map path's light pass
     against their plain versions, timed as in phases 3, 4 and 8; a
-    ``sharded`` JSON line with the CUDA-event frame times.
+    ``sharded`` JSON line with the CUDA-event frame times;
+15. workload modes: the JAX bench's modes through
+    ``vrenderer_tpu_torch.workloads`` at full size (WORKLOAD_VARIANTS: 4k,
+    envelope, ground, mapref, mapsnap at quant 256 and 64, mapwalk, map at
+    a 1024^2 light map). For each: ``probe`` (no overflow at camera 0; the
+    envelope selects more than 512 instances), then ``steady_frames`` over
+    all 64 cameras with the cache its loop keeps; every frame finite,
+    coverage in (0, 1) (up to 1 for the ground-height eyes of ground and
+    mapwalk), and at every camera the selection count and the overflow
+    mask equal to the JAX package's op-by-op counts in
+    tests/workload_counts_jax.npz (overflow only where the JAX package
+    overflows); the work items against the same file, printed where they
+    differ (the card's vertex stage rounds in other last bits than the
+    CPU, and an instance's bbox may move across a supertile edge); the
+    launches (B1 a frame, plus the horizon prepass's
+    mesh-top field; B2 a frame in mapref and map, once in mapsnap and
+    mapwalk per cell crossing plus the fill); the cached frames (the first,
+    the last and, for the quantized eye, the first after a crossing)
+    bit-identical to inline ``Renderer.render`` frames; ``camera_stats``
+    (CUDA-event frame times, spread, slowest cameras, correlations). Then
+    B1 against its plain version at the camera of 4k, envelope and ground
+    whose input the block test evaluates most pairs of, B2 at the heaviest
+    light pass of mapwalk and of the 1024^2 map, with times, pairs and
+    bounds; the 4k per-pass table; a ``workloads`` JSON line and the
+    phase's seconds.
 
 Each path's kernel launches are counted from 0 just before it runs. Then
 one JSON line with each kernel's launches (on its path: B1 and B2 on the
 map path, B3a and B3b on the two-phase path; B1 and B2 also carry the
 editor path's launches and numbers under ``editor_launches`` and
-``editor``, and each kernel the sharded path's launches and its band
-numbers under ``sharded_launches`` and ``sharded``), and its error, times
-and
+``editor``, and the workload modes' launches and their kernel checks under
+``workloads_launches`` and ``workloads``, and each kernel the sharded
+path's launches and its band numbers under ``sharded_launches`` and
+``sharded``), and its error, times and
 bound at camera 13, with each camera's under ``cameras`` (B1's at the
 map path's inputs, B3a's and B3b's at the horizon path's), and for B1, B2
 and B3a the pairs their block test evaluates (``evaluated_pairs``) beside
@@ -203,6 +228,19 @@ SHARD_DT = 0.1                                 # the JAX tests' step
 # than 2e-3 in a channel; the bands' luminance sums add in another order
 SHARD_PIXEL_TOL, SHARD_PIXEL_SHARE = 2e-3, 1e-4
 SHARD_LUM_RTOL = 1e-5
+# phase 15: the JAX bench's workload modes (vrenderer_tpu_torch/workloads.py)
+# as (name, mode, quant, shadow_res), named as in tests/workload_counts_jax.npz
+WORKLOAD_VARIANTS = (
+    ("4k", "4k", None, None), ("envelope", "envelope", None, None),
+    ("ground", "ground", None, None), ("mapref", "mapref", None, None),
+    ("mapsnap", "mapsnap", None, None),
+    ("mapsnap-q64", "mapsnap", 64.0, None),
+    ("mapwalk", "mapwalk", None, None), ("map-r1024", "map", None, 1024),
+)
+WORKLOAD_B1 = ("4k", "envelope", "ground")      # B1 at the heaviest camera
+WORKLOAD_B2 = ("mapwalk", "map-r1024")          # B2 at the heaviest light pass
+# ground-height eyes may see no sky: a frame may be covered whole
+WORKLOAD_FULL_COVER = ("ground", "mapwalk")
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -1781,6 +1819,196 @@ def phase_sharded(device, card: str, params, cams) -> dict:
     return dict(total), kern
 
 
+def expected_counts(stored: dict, name: str, mode: str, r) -> dict:
+    """The JAX package's counts of variant ``name`` (op by op, stored in
+    tests/workload_counts_jax.npz) as the port's frames report them: the
+    selection count (``map`` shares the light pass's geometry and reports
+    the light selection's), the work items and the overflow mask each
+    camera must carry."""
+    from vrenderer_tpu_torch import workloads
+
+    g = {k: stored[f"{name}:{k}"] for k in ("selected", "light_selected",
+                                            "work", "light_work")}
+    sel = g["light_selected"] if mode == "map" else g["selected"]
+    mask = (g["work"] > r.max_work) + 2 * (sel > r.max_active)
+    if mode in workloads.MAP_MODES:
+        mask = mask + 4 * ((g["light_work"] > r.max_work)
+                           | (g["light_selected"] > r.max_active))
+    return {"selected": sel, "work": g["work"], "mask": mask,
+            "light_work": g["light_work"]}
+
+
+def workload_run(name: str, mode: str, quant, shadow_res, device,
+                 stored: dict, card: str) -> dict:
+    """One variant of phase 15 (module docstring): probe, the steady loop
+    of all cameras checked against the stored JAX counts, cached frames
+    against inline ones, and the per-camera statistics. Returns its JSON
+    numbers and what the kernel checks need."""
+    import torch
+
+    from vrenderer_tpu_torch import workloads
+
+    t0 = time.perf_counter()
+    r, params, cams = workloads.build(mode, device, quant, shadow_res)
+    cfg = r.config
+    n = workloads.N_CAMERAS
+    out0 = workloads.probe(r, params, cams, mode)      # also the warm-up
+    probe = {"instances": int(out0.num_instances),
+             "work_items": int(out0.num_work_items)}
+    quant_mode = mode in workloads.QUANT_MODES
+    crossings = (workloads.cell_crossings(cams, cfg.shadow_eye_quant)
+                 if quant_mode else None)
+    # the frames held to inline ones: those of a cached loop (horizon
+    # prepass, quantized-eye map), the first after a crossing among them
+    check = []
+    if quant_mode or mode not in workloads.MAP_MODES:
+        check = [0, n - 1]
+    if quant_mode:
+        check.insert(1, workloads.crossing_frames(
+            cams, cfg.shadow_eye_quant)[0])
+    reset_launches()
+    steady = workloads.steady_frames(r, params, cams, mode, keep=check)
+    torch.cuda.synchronize()
+    launched = read_launches()
+
+    col = {k: j for j, k in enumerate(workloads.SUMMARY)}
+    s = steady.summary
+    exp = expected_counts(stored, name, mode, r)
+    cov = s[:, col["coverage"]]
+    cov_ok = (cov > 0) & ((cov <= 1) if name in WORKLOAD_FULL_COVER
+                          else (cov < 1))
+    bad = {
+        "not finite": np.nonzero(s[:, col["finite"]] != 1)[0],
+        "coverage": np.nonzero(~cov_ok)[0],
+        "selection differs from JAX": np.nonzero(
+            s[:, col["num_selected"]] != exp["selected"])[0],
+        "overflow mask differs from JAX's": np.nonzero(
+            s[:, col["overflow_mask"]] != exp["mask"])[0],
+    }
+    bad = {k: v.tolist() for k, v in bad.items() if v.size}
+    if bad:
+        raise RuntimeError(f"workload {name}: " + "; ".join(
+            f"{k} at cameras {v}" for k, v in bad.items()))
+    work_diff = {int(i): [int(s[i, col["num_work_items"]]), int(exp["work"][i])]
+                 for i in np.nonzero(s[:, col["num_work_items"]]
+                                     != exp["work"])[0]}
+    b2 = {"map": n, "mapref": n}.get(mode, 0)
+    if quant_mode:
+        b2 = crossings + 1
+    want = launches(raster=n + (0 if mode in workloads.MAP_MODES else 1),
+                    raster_depth=b2)
+    if launched != want or steady.light_rasters != b2:
+        raise RuntimeError(f"workload {name}: launches {launched}, light "
+                           f"rasters {steady.light_rasters}, expected {want}")
+    for i in check:
+        inline = r.render(cams.frame(i), params)
+        for f in ("ldr", "hdr", "depth", "prim_id", "overflow_mask"):
+            if not torch.equal(getattr(steady.frames[i], f),
+                               getattr(inline, f)):
+                raise RuntimeError(f"workload {name}: cached frame {i}: {f} "
+                                   f"differs from the inline frame")
+    loop_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    stats = workloads.camera_stats(r, params, cams, mode, steady)
+    rows = stats["cameras"]
+    heavy = max(rows, key=lambda row: row["evaluated_pairs"])["camera"]
+    over = np.nonzero(exp["mask"])[0].tolist()
+    log(f"workload {name} ({cfg.width}x{cfg.height}, {cfg.shadow_mode}, "
+        f"max_active {r.max_active}, max_work {r.max_work}): probe camera 0 "
+        f"{probe['instances']} instances, {probe['work_items']} work items; "
+        f"{n} frames finite, coverage {cov.min():.4f}-{cov.max():.4f}, "
+        f"selection equal to JAX's at every camera, work items at "
+        f"{n - len(work_diff)} (port, JAX elsewhere: {work_diff}) "
+        f"(selected {int(s[:, col['num_selected']].min())}-"
+        f"{int(s[:, col['num_selected']].max())}, work items "
+        f"{int(s[:, col['num_work_items']].min())}-"
+        f"{int(s[:, col['num_work_items']].max())}), overflow "
+        + (f"at cameras {over} as in the JAX package" if over else "none")
+        + f"; light rasters {steady.light_rasters}"
+        + (f" = {crossings} crossings + 1" if quant_mode else "")
+        + f"; launches {launched}; cached frames {check} bit-identical to "
+        f"inline; loop {loop_s:.1f} s, stats "
+        f"{time.perf_counter() - t1:.1f} s")
+    log(f"workload {name} frame times ({card}, CUDA events, {n} cameras): "
+        f"mean {stats['mean_ms']:.3f} ms, p50 {stats['p50_ms']:.3f}, max "
+        f"{stats['max_ms']:.3f}; slowest "
+        + ", ".join(f"cam {i} {m:.3f}" for i, m in stats["slowest"])
+        + "; corr(ms, x): " + ", ".join(
+            f"{k} " + ("n/a" if v is None else f"{v:+.3f}")
+            for k, v in stats["corr"].items())
+        + f"; evaluated pairs {min(r_['evaluated_pairs'] for r_ in rows)}-"
+        f"{max(r_['evaluated_pairs'] for r_ in rows)} (camera {heavy} the "
+        f"most)")
+    light_cam = int(np.argmax(exp["light_work"]))
+    return {"r": r, "params": params, "cams": cams, "heavy": heavy,
+            "light_camera": light_cam, "launches": launched, "json": {
+                "mode": mode, "size": [cfg.width, cfg.height],
+                "shadow": cfg.shadow_mode,
+                "shadow_resolution": cfg.shadow_resolution,
+                "quant": cfg.shadow_eye_quant, "max_active": r.max_active,
+                "max_work": r.max_work, "probe": probe,
+                "light_rasters": steady.light_rasters,
+                "cell_crossings": crossings, "overflow_cameras": over,
+                "work_items_vs_jax": work_diff,
+                "coverage": [float(cov.min()), float(cov.max())],
+                "launches": launched,
+                **{k: stats[k] for k in ("mean_ms", "p50_ms", "max_ms",
+                                         "slowest", "corr")},
+                "work_items": [int(s[:, col["num_work_items"]].min()),
+                               int(s[:, col["num_work_items"]].max())],
+                "evaluated_pairs": [min(r_["evaluated_pairs"] for r_ in rows),
+                                    max(r_["evaluated_pairs"]
+                                        for r_ in rows)],
+                "heaviest_camera": heavy, "card": card}}
+
+
+def phase_workloads(device, card: str) -> tuple:
+    """Phase 15 (module docstring). Returns the kernels' launches over the
+    steady loops and their checks at these inputs."""
+    from vrenderer_tpu_torch import workloads
+
+    t0 = time.perf_counter()
+    with np.load(REPO / "tests" / "workload_counts_jax.npz") as f:
+        stored = {k: f[k] for k in f.files}
+    total, runs, b1, b2, passes = Counter(), {}, {}, {}, None
+    for name, mode, quant, res in WORKLOAD_VARIANTS:
+        run = workload_run(name, mode, quant, res, device, stored, card)
+        total.update(run["launches"])
+        runs[name] = run["json"]
+        r, params, cams = run["r"], run["params"], run["cams"]
+        cfg = r.config
+        # the kernels at these inputs (their launches here are not counted)
+        if name in WORKLOAD_B1:
+            i = run["heavy"]
+            pre = workloads.frame_prepass(r, params, cams.eye[i], mode)
+            b1[name] = {"camera": i, **b1_vs_plain(
+                f"(workload {name}) camera {i}",
+                *r.raster_inputs(cams.frame(i), params, pre), cfg.width,
+                cfg.height, cfg.raster.tile_w, layouts=False)}
+        if name in WORKLOAD_B2:
+            i = run["light_camera"]
+            res_l = cfg.shadow_resolution
+            b2[name] = {"camera": i, **b2_vs_plain(
+                f"(workload {name} light pass, {res_l}^2) camera {i}",
+                *r.light_raster_inputs(cams.frame(i), params), res_l,
+                cfg.raster.tile_w, layouts=False)}
+        if name == "4k":
+            t1 = time.perf_counter()
+            passes = dict(workloads.pass_table(
+                r, cams.frame(workloads.PASS_CAMERA)).results)
+            log(f"workload 4k passes (camera {workloads.PASS_CAMERA}, median "
+                f"of 10 calls, CUDA events, {card}): " + ", ".join(
+                    f"{k} {v:.3f} ms" for k, v in passes.items())
+                + f"; {time.perf_counter() - t1:.1f} s")
+        del run, r
+    secs = time.perf_counter() - t0
+    print(json.dumps({"workloads": runs, "passes_4k": passes,
+                      "pass_camera": workloads.PASS_CAMERA, "seconds": secs,
+                      "device": card}), flush=True)
+    log(f"workloads phase: {len(WORKLOAD_VARIANTS)} variants in {secs:.1f} s")
+    return dict(total), b1, b2
+
+
 def main() -> int:
     import torch
 
@@ -1851,6 +2079,7 @@ def main() -> int:
     phase_map_cached(device, params, cams)
     ed_b1, ed_b2, ed_launches = phase_editor(device, card)
     sh_launches, sh = phase_sharded(device, card, params, cams)
+    wl_launches, wl_b1, wl_b2 = phase_workloads(device, card)
 
     src = "vrenderer_tpu_torch/csrc/raster.cu"
     print(json.dumps({"kernels": [
@@ -1859,14 +2088,17 @@ def main() -> int:
          "launches": map_launches["raster"], **kern, "library_ms": None,
          "editor_launches": ed_launches["raster"], "editor": ed_b1,
          "sharded_launches": sh_launches["raster"], "sharded": sh["raster"],
-         "sharded_map": sh["raster_map"]},
+         "sharded_map": sh["raster_map"],
+         "workloads_launches": wl_launches["raster"], "workloads": wl_b1},
         {"name": "raster_depth", "route": "cuda", "source": src,
          "replaces": "vrenderer_tpu/ops/raster_pallas.py:1121",
          "launches": map_launches["raster_depth"], **kern_d,
          "library_ms": None,
          "editor_launches": ed_launches["raster_depth"], "editor": ed_b2,
          "sharded_launches": sh_launches["raster_depth"],
-         "sharded": sh["raster_depth"]},
+         "sharded": sh["raster_depth"],
+         "workloads_launches": wl_launches["raster_depth"],
+         "workloads": wl_b2},
         {"name": "raster_zid", "route": "cuda", "source": src,
          "replaces": "vrenderer_tpu/ops/raster_pallas.py:1209",
          "launches": two_launches["raster_zid"], **kern_zid,

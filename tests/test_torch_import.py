@@ -31,11 +31,12 @@ def test_package_imports_without_jax():
     # utils.{math3d, native}, terrain.{heightmap, grid, quadtree},
     # ops.{texture, vertex, raster, raster_cuda, lighting, shadow, _build},
     # models.{mesh, scene}, profiler.profiler, parallel.sharded,
-    # examples.{hello_triangle, walkthrough} and the subpackages
+    # examples.{hello_triangle, walkthrough}, workloads and the subpackages
     names = proc.stdout.split()
-    assert len(names) >= 33
+    assert len(names) >= 34
     for m in ("editor", "entry", "examples.hello_triangle",
-              "examples.walkthrough", "models.scene", "parallel.sharded"):
+              "examples.walkthrough", "models.scene", "parallel.sharded",
+              "workloads"):
         assert f"vrenderer_tpu_torch.{m}" in names
 
 

@@ -1,0 +1,71 @@
+"""View constants, the sun's light-view matrices and LOD selection give the
+same bits on every device as on the host: at ground-height eyes
+(workloads' ``mapwalk`` and ``ground``) frustum planes through the eye cut
+the selection's boxes at its height, so a last-bit difference in the
+planes or in the order of the frustum test's sum changes the selection.
+On the card the port computes the matrices on the host and sums the
+frustum test in x, y, z order (``camera.make_view_constants``,
+``shadow.sun_shear_matrices``, ``math3d.frustum_intersects_box``).
+
+CPU cases check the host path; CUDA cases (marker ``cuda``) skip where
+there is no card. The file imports no JAX, so on the machine with the card
+it runs without the repository's conftest:
+
+    python -m pytest tests/test_torch_view_devices.py --noconftest -q
+"""
+
+import pytest
+import torch
+
+from vrenderer_tpu_torch import workloads
+from vrenderer_tpu_torch.camera import Camera, make_view_constants
+from vrenderer_tpu_torch.ops import shadow
+from vrenderer_tpu_torch.terrain import quadtree
+from vrenderer_tpu_torch.utils import math3d
+
+
+@pytest.fixture(params=["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def device(request):
+    if request.param == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device(request.param)
+
+
+def _equal(a, b):
+    return torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("mode", ["mapwalk", "ground"])
+def test_view_and_selection_bits_match_the_host(device, mode):
+    r, params, cams = workloads.build(mode, device="cpu")
+    cfg = r.config
+    ts = cfg.terrain
+    args = (cfg.width, cfg.height, cfg.vfov_degrees, cfg.z_near, cfg.z_far)
+    for i in range(workloads.N_CAMERAS):
+        host = cams.frame(i)
+        cam = Camera(*(f.to(device) for f in host))
+        vc, vc_h = make_view_constants(cam, *args), make_view_constants(
+            host, *args)
+        for k, v in vc.items():
+            assert v.device.type == device.type and _equal(v, vc_h[k]), (i, k)
+        sel = quadtree.select_all_surfaces(
+            ts, cam.eye, math3d.frustum_planes(vc["world_to_clip"]),
+            ts.lod_ranges(device))
+        sel_h = quadtree.select_all_surfaces(
+            ts, host.eye, math3d.frustum_planes(vc_h["world_to_clip"]),
+            ts.lod_ranges())
+        assert int(sel.count) == int(sel_h.count) > 0, i
+        for f in ("position", "extents", "lod", "valid"):
+            assert _equal(getattr(sel, f), getattr(sel_h, f)), (i, f)
+
+
+def test_sun_shear_matrices_bits_match_the_host(device):
+    _, params, _ = workloads.build("mapwalk", device="cpu")
+    for res in (128, 1024, 2048):
+        got = shadow.sun_shear_matrices(params.light_direction.to(device),
+                                        2048.0, params.max_height.to(device),
+                                        res)
+        want = shadow.sun_shear_matrices(params.light_direction, 2048.0,
+                                         params.max_height, res)
+        for a, b in zip(got, want):
+            assert a.device.type == device.type and _equal(a, b)

@@ -37,18 +37,25 @@ def scene_path(tmp_path_factory):
     return path
 
 
-def _pair(scene_path, mode, backend="xla"):
+def _port(scene_path, mode, backend="xla"):
+    """The port's renderer on the JAX package's heightmap and albedo."""
     jcfg = dataclasses.replace(JCFG, shadow_mode=mode, shadow_resolution=128)
     hm = jhmod.procedural_heightmap(64, seed=7)
-    alb = jhmod.procedural_albedo(hm)
-    jr = JRenderer(jcfg, hm, alb, raster_backend="xla",
+    return Renderer(convert.frame_config(dataclasses.asdict(jcfg)),
+                    convert.tensor(np.asarray(hm)),
+                    convert.tensor(np.asarray(jhmod.procedural_albedo(hm))),
+                    raster_backend=backend,
+                    scene=pscene.load_gltf(scene_path, device="cpu"),
+                    device="cpu")
+
+
+def _pair(scene_path, mode):
+    """The JAX package's "xla" renderer and the port's on the same state."""
+    jcfg = dataclasses.replace(JCFG, shadow_mode=mode, shadow_resolution=128)
+    hm = jhmod.procedural_heightmap(64, seed=7)
+    jr = JRenderer(jcfg, hm, jhmod.procedural_albedo(hm), raster_backend="xla",
                    scene=jscene.load_gltf(scene_path))
-    r = Renderer(convert.frame_config(dataclasses.asdict(jcfg)),
-                 convert.tensor(np.asarray(hm)),
-                 convert.tensor(np.asarray(alb)), raster_backend=backend,
-                 scene=pscene.load_gltf(scene_path, device="cpu"),
-                 device="cpu")
-    return jr, r
+    return jr, _port(scene_path, mode)
 
 
 def test_xla_backend_map_frame_matches_jax(scene_path):
@@ -86,8 +93,8 @@ def test_xla_and_pallas_backends_agree(scene_path, mode):
     raster (B1's plain version; B2's in map mode): prim ids exact, depth
     and the light map bitwise, attributes within 3e-4; only the pallas
     backend counts work items."""
-    _, rx = _pair(scene_path, mode)
-    _, rp = _pair(scene_path, mode, backend="pallas")
+    rx = _port(scene_path, mode)
+    rp = _port(scene_path, mode, backend="pallas")
     _, cam = cameras(*VIEW)
     _, p = frame_params_pair()
     vc = rx._view(cam)

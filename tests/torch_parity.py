@@ -15,6 +15,14 @@ from vrenderer_tpu.config import FrameConfig as JFrameConfig
 from vrenderer_tpu.config import TerrainSettings as JTerrainSettings
 from vrenderer_tpu_torch import convert
 
+# A parallel test run (pytest-xdist) starts one process per worker, and
+# each imports this module while it collects the tests. PyTorch gives every
+# process an intra-op pool of one thread per core, whose threads spin
+# between parallel regions: a few such pools oversubscribe the cores and
+# slow every worker. The tests' tensors are small, so each process keeps
+# PyTorch to one thread.
+torch.set_num_threads(1)
+
 W, H = 256, 128
 JSET = JTerrainSettings(surface_size=64, world_size=64, max_instances=64,
                         grid_size=8)

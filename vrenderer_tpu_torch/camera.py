@@ -42,24 +42,30 @@ def make_view_constants(camera: Camera, width: int, height: int,
                         vfov_degrees: float = 60.0, z_near: float = 0.1,
                         z_far: float = 10000.0):
     """PlanarViewConstants equivalent (donut's FillPlanarViewConstants,
-    TerrainPass.cpp:281); keys match the JAX package."""
+    TerrainPass.cpp:281); keys match the JAX package.
+
+    The matrices are computed on the host, as the reference fills them on
+    the CPU, and moved to the camera's device. The card's cross products,
+    sums and matrix products round differently in the last bits, and LOD
+    selection at a ground-height eye follows those bits (frustum planes
+    through the eye cut boxes at its height)."""
     dev = camera.eye.device
-    w2v = camera.world_to_view()
+    host = Camera(*(f.detach().to("cpu") for f in camera))
+    w2v = host.world_to_view()
     proj = math3d.persp_proj_d3d_style(
-        math.radians(float(vfov_degrees)), width / height, z_near, z_far,
-        device=dev,
-    )
+        math.radians(float(vfov_degrees)), width / height, z_near, z_far)
     vp = math3d.view_proj(w2v, proj)
-    return {
+    out = {
         "world_to_view": w2v,
         "view_to_clip": proj,
         "world_to_clip": vp,
         "clip_to_world": math3d.inverse_4x4(vp),
         "view_to_world": math3d.inverse_affine(w2v),
-        "camera_pos": camera.eye,
-        "viewport": torch.tensor([width, height], dtype=torch.float32,
-                                 device=dev),
+        "viewport": torch.tensor([width, height], dtype=torch.float32),
     }
+    out = {k: v.to(dev) for k, v in out.items()}
+    out["camera_pos"] = camera.eye
+    return out
 
 
 def _look_basis(yaw: float, pitch: float):

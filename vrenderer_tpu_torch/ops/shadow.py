@@ -179,7 +179,18 @@ def sun_shear_matrices(light_direction: torch.Tensor, world_size: float,
     The shear vector's length is clamped to ``k_max`` (low suns), keeping
     its direction. The map spans the world plus ``max_height * |k|`` per
     axis, pixel centres on the span's texel lattice. Returns (wtc (4, 4),
-    kx, kz, span_x, span_z), spans in world metres."""
+    kx, kz, span_x, span_z), spans in world metres. Computed on the host
+    and moved to the light direction's device, as ``make_view_constants``
+    does: the light selection culls against these planes."""
+    dev = light_direction.device
+    out = _sun_shear_matrices(light_direction.detach().to("cpu"), world_size,
+                              torch.as_tensor(max_height).detach().to("cpu"),
+                              resolution, k_max)
+    return tuple(v.to(dev) for v in out)
+
+
+def _sun_shear_matrices(light_direction, world_size, max_height, resolution,
+                        k_max):
     dev = light_direction.device
     d = light_direction.to(torch.float32)
     d = d / torch.sqrt(torch.sum(d * d) + 1e-20)

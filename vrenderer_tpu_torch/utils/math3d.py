@@ -184,11 +184,15 @@ def frustum_planes(vp: torch.Tensor) -> torch.Tensor:
 def frustum_intersects_box(planes: torch.Tensor, box_min: torch.Tensor,
                            box_max: torch.Tensor) -> torch.Tensor:
     """p-vertex AABB test (dm::frustum::intersectsWith, QuadTree.cpp:99):
-    False only if the box lies fully outside some plane."""
+    False only if the box lies fully outside some plane. The dot product
+    is summed x, y, z in that order on every device (a reduction kernel
+    on the card orders it otherwise, and boxes at the eye's height sit on
+    planes through the eye)."""
     n = planes[:, :3]
     d = planes[:, 3]
     p_vert = torch.where(n >= 0.0, box_max[..., None, :], box_min[..., None, :])
-    dist = torch.sum(p_vert * n, dim=-1) + d
+    pn = p_vert * n
+    dist = ((pn[..., 0] + pn[..., 1]) + pn[..., 2]) + d
     return torch.all(dist >= 0.0, dim=-1)
 
 
