@@ -118,12 +118,14 @@ Phases, each printing one line and raising on failure:
     envelope selects more than 512 instances), then ``steady_frames`` over
     all 64 cameras with the cache its loop keeps; every frame finite,
     coverage in (0, 1) (up to 1 for the ground-height eyes of ground and
-    mapwalk), and at every camera the selection count and the overflow
-    mask equal to the JAX package's op-by-op counts in
+    mapwalk), and at every camera the selection count, the work items
+    and the overflow mask equal to the JAX package's op-by-op counts in
     tests/workload_counts_jax.npz (overflow only where the JAX package
-    overflows); the work items against the same file, printed where they
-    differ (the card's vertex stage rounds in other last bits than the
-    CPU, and an instance's bbox may move across a supertile edge); the
+    overflows); before the variants, ``vertex_stage_bits``: at envelope
+    camera 40 the vertex stage's world and attrs, the poses and the work
+    items bit for bit equal on the card and on the CPU, with each of the
+    stage's operations and what it used before (torch's float32 sqrt, its
+    sum, the einsum sampler) compared alone (ROADMAP C); the
     launches (B1 a frame, plus the horizon prepass's
     mesh-top field; B2 a frame in mapref and map, once in mapsnap and
     mapwalk per cell crossing plus the fill); the cached frames (the first,
@@ -134,7 +136,25 @@ Phases, each printing one line and raising on failure:
     whose input the block test evaluates most pairs of, B2 at the heaviest
     light pass of mapwalk and of the 1024^2 map, with times, pairs and
     bounds; the 4k per-pass table; a ``workloads`` JSON line and the
-    phase's seconds.
+    phase's seconds;
+16. probes: the microbenchmarks of ``vrenderer_tpu_torch.probes`` (what
+    ``python -m vrenderer_tpu_torch.probes`` runs), the counterparts of the
+    JAX package's Mosaic probes under scripts/, at their full sizes. P1
+    ``vrt_probe_sweep``: 512 dependent sweeps over 512 x 1024 float32 as
+    FMA, multiply then add, min and compare-select, and probe_fma's ev()
+    chain (32 x 2048, 512 reps) in four modes; P2 ``vrt_probe_eval``: 1024
+    work items' 16 mask rows ranked and compacted from row-major and
+    component-major triangle rows, and 32 rows evaluated against
+    probe_exact's random and edge right-hand sides (4096 px); P3
+    ``vrt_probe_merge``: the per-pixel minimum with the lowest index merged
+    by 64-bit and 32-bit shared atomics and by owner threads, at the
+    probe's (2048 x 128) and a hot spot's (4096 x 4096) pairs, one region a
+    streaming multiprocessor; P4 ``vrt_probe_window``: probe_window's
+    16-column group sums and the coefficient gather of B1's output pass at
+    the horizon frame's camera 13, by scalar and by float4 loads. Every case
+    bit for bit equal to its plain version; times, rates and bounds with the
+    card's name; SASS instruction counts of P1 (FFMA against FMUL and FADD)
+    and P3 (the shared atomics); a ``probes`` JSON line.
 
 Each path's kernel launches are counted from 0 just before it runs. Then
 one JSON line with each kernel's launches (on its path: B1 and B2 on the
@@ -143,7 +163,8 @@ editor path's launches and numbers under ``editor_launches`` and
 ``editor``, and the workload modes' launches and their kernel checks under
 ``workloads_launches`` and ``workloads``, and each kernel the sharded
 path's launches and its band numbers under ``sharded_launches`` and
-``sharded``), and its error, times and
+``sharded``; P1-P4 the probes' launches, their reported case under
+``case`` and every case under ``cases``), and its error, times and
 bound at camera 13, with each camera's under ``cameras`` (B1's at the
 map path's inputs, B3a's and B3b's at the horizon path's), and for B1, B2
 and B3a the pairs their block test evaluates (``evaluated_pairs``) beside
@@ -174,6 +195,10 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
+
+# CUDA-event timing (kernel reps queued behind a device sleep) and the
+# bound against the H100's data-sheet peaks
+from vrenderer_tpu_torch.probes.common import bound, cuda_ms  # noqa: E402
 
 WIDTH, HEIGHT = 1920, 1152          # bench.py's 1080p frame (9 supertiles)
 MAX_ACTIVE, MAX_WORK = 512, 2048    # bench.py's horizon-mode budgets
@@ -239,12 +264,11 @@ WORKLOAD_VARIANTS = (
 )
 WORKLOAD_B1 = ("4k", "envelope", "ground")      # B1 at the heaviest camera
 WORKLOAD_B2 = ("mapwalk", "map-r1024")          # B2 at the heaviest light pass
+# phase 15: the view at which the card's vertex stage once rounded otherwise
+# and binned 3079 work items against the CPU's 3075 (ROADMAP C)
+VERTEX_MODE, VERTEX_CAMERA = "envelope", 40
 # ground-height eyes may see no sky: a frame may be covered whole
 WORKLOAD_FULL_COVER = ("ground", "mapwalk")
-# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s and
-# float32 operations/s outside the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
 VIS_BYTES = 64        # one triangle's 16 visibility floats
 COEF_BYTES = 108      # one triangle's 27 attribute plane coefficients
 PAIR_OPS = 16         # 3 edge + 1 depth plane per (triangle, pixel) pair
@@ -261,45 +285,6 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, queued: bool = True) -> float:
-    """Mean milliseconds of ``fn`` on the current stream (CUDA events).
-    ``queued``: the reps queue behind a device-side sleep, lengthened until
-    the host has queued them all before it ends, so the time is the
-    device's, not the host's launch rate (a kernel of tens of microseconds
-    launches slower than it runs). Plain versions, some of which
-    synchronise the host, run unqueued."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    cycles = 1 << 24
-    while True:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if queued:
-            torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        ahead = not start.query()   # the device still sleeps
-        end.synchronize()
-        if ahead or not queued:
-            return start.elapsed_time(end) / reps
-        if cycles >= 1 << 32:
-            raise RuntimeError("the host could not queue the reps ahead of "
-                               "the device")
-        cycles *= 4
-
-
-def bound(n_bytes: float, n_ops: float) -> dict:
-    """The least time the card could take: bytes over the memory rate or
-    float32 operations over the peak rate, whichever is longer."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_S
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def png_bytes(img: np.ndarray) -> bytes:
@@ -502,27 +487,18 @@ def layout_times(fn, check) -> dict:
     return out
 
 
-def sass_atomics(lib: Path) -> str:
+def sass_atomics() -> str:
     """The shared-memory atomic instructions each region kernel compiled
     to, from cuobjdump's SASS of the built library."""
-    from vrenderer_tpu_torch.ops import _build
+    from vrenderer_tpu_torch.probes import common
 
-    tool = Path(_build._nvcc()).parent / "cuobjdump"
-    if not tool.exists():
-        return "cuobjdump not found"
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    per_fn, name = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            m = re.search(r"region_kernelILi(\d)E", line)
-            name = (f"region_kernel<{('B1', 'B3a', 'B2')[int(m.group(1))]}>"
-                    if m else None)
-        elif name:
-            for op in re.findall(r"\bATOMS\.[A-Z0-9.]+", line):
-                per_fn.setdefault(name, Counter())[op] += 1
+    named = {}
+    for fn, ops in common.sass_ops(r"region_kernel",
+                                   r"ATOMS\.[A-Z0-9.]+").items():
+        i = int(re.search(r"region_kernelILi(\d)E", fn).group(1))
+        named[f"region_kernel<{('B1', 'B3a', 'B2')[i]}>"] = ops
     return "; ".join(f"{k}: " + ", ".join(f"{op} x{n}" for op, n in v.items())
-                     for k, v in sorted(per_fn.items()))
+                     for k, v in sorted(named.items()))
 
 
 def winner_bytes(ids) -> int:
@@ -1884,14 +1860,13 @@ def workload_run(name: str, mode: str, quant, shadow_res, device,
             s[:, col["num_selected"]] != exp["selected"])[0],
         "overflow mask differs from JAX's": np.nonzero(
             s[:, col["overflow_mask"]] != exp["mask"])[0],
+        "work items differ from JAX": np.nonzero(
+            s[:, col["num_work_items"]] != exp["work"])[0],
     }
     bad = {k: v.tolist() for k, v in bad.items() if v.size}
     if bad:
         raise RuntimeError(f"workload {name}: " + "; ".join(
             f"{k} at cameras {v}" for k, v in bad.items()))
-    work_diff = {int(i): [int(s[i, col["num_work_items"]]), int(exp["work"][i])]
-                 for i in np.nonzero(s[:, col["num_work_items"]]
-                                     != exp["work"])[0]}
     b2 = {"map": n, "mapref": n}.get(mode, 0)
     if quant_mode:
         b2 = crossings + 1
@@ -1917,8 +1892,7 @@ def workload_run(name: str, mode: str, quant, shadow_res, device,
         f"max_active {r.max_active}, max_work {r.max_work}): probe camera 0 "
         f"{probe['instances']} instances, {probe['work_items']} work items; "
         f"{n} frames finite, coverage {cov.min():.4f}-{cov.max():.4f}, "
-        f"selection equal to JAX's at every camera, work items at "
-        f"{n - len(work_diff)} (port, JAX elsewhere: {work_diff}) "
+        f"selection and work items equal to JAX's at every camera "
         f"(selected {int(s[:, col['num_selected']].min())}-"
         f"{int(s[:, col['num_selected']].max())}, work items "
         f"{int(s[:, col['num_work_items']].min())}-"
@@ -1949,7 +1923,6 @@ def workload_run(name: str, mode: str, quant, shadow_res, device,
                 "max_work": r.max_work, "probe": probe,
                 "light_rasters": steady.light_rasters,
                 "cell_crossings": crossings, "overflow_cameras": over,
-                "work_items_vs_jax": work_diff,
                 "coverage": [float(cov.min()), float(cov.max())],
                 "launches": launched,
                 **{k: stats[k] for k in ("mean_ms", "p50_ms", "max_ms",
@@ -1962,6 +1935,249 @@ def workload_run(name: str, mode: str, quant, shadow_res, device,
                 "heaviest_camera": heavy, "card": card}}
 
 
+def einsum_separable(tex, u, v, mode: str = "lattice"):
+    """The grid sampler's earlier form, the JAX package's: two float32
+    matrix products with ``interp_matrix`` weights. Returns (rows, samples)."""
+    import torch
+
+    from vrenderer_tpu_torch.ops import texture
+
+    H, W = tex.shape[0], tex.shape[1]
+    au = texture.interp_matrix(u, W, mode)
+    av = texture.interp_matrix(v, H, mode)
+    if tex.ndim == 2:
+        rows = torch.einsum("...vh,hw->...vw", av, tex)
+        return rows, torch.einsum("...vw,...uw->...vu", rows, au)
+    rows = torch.einsum("...vh,hwc->...vwc", av, tex)
+    return rows, torch.einsum("...vwc,...uw->...vuc", rows, au)
+
+
+def bits_differ(a, b) -> int:
+    """How many elements of ``a`` (any device) and ``b`` differ in their
+    bits (floats compared as integers, so -0.0 differs from +0.0)."""
+    import torch
+
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise RuntimeError(f"{tuple(a.shape)} {a.dtype} against "
+                           f"{tuple(b.shape)} {b.dtype}")
+    if a.dtype.is_floating_point:
+        as_int = {torch.float32: torch.int32, torch.float64: torch.int64}
+        a, b = a.view(as_int[a.dtype]), b.view(as_int[b.dtype])
+    return int((a != b).sum())
+
+
+def _to(x, device):
+    """Tensors, and the tensors of a NamedTuple or dict, moved to
+    ``device``."""
+    if isinstance(x, dict):
+        return {k: _to(v, device) for k, v in x.items()}
+    if isinstance(x, tuple):
+        moved = (_to(f, device) for f in x)
+        return type(x)(*moved) if hasattr(x, "_fields") else tuple(moved)
+    return x.to(device)
+
+
+def vertex_steps(ts, x) -> dict:
+    """The vertex stage's operations one by one, as ops/vertex.py orders
+    them, from the inputs ``x`` (VERTEX_MODE's): {step: tensor}. Each step
+    reads earlier steps' values from the dict it fills, so it runs from
+    another device's values too (``step_diffs``)."""
+    import torch
+
+    from vrenderer_tpu_torch.ops import texture, vertex
+    from vrenderer_tpu_torch.utils import math3d
+
+    S, world = ts.verts_per_side, float(ts.world_size)
+    gs = float(ts.grid_size)
+    I = x["inst"].position.shape[0]
+    steps = [
+        ("g", lambda e: math3d.linspace(-1.0, 1.0, S,
+                                        device=e["hm"].device)),
+        ("ux", lambda e: e["inst"].position[:, 0:1]
+         + e["inst"].extents[:, 0:1] * e["g"][None]),
+        ("uz", lambda e: e["inst"].position[:, 2:3]
+         + e["inst"].extents[:, 2:3] * e["g"][None]),
+        ("u", lambda e: texture.world_to_uv(e["ux"], world)),
+        ("v", lambda e: texture.world_to_uv(e["uz"], world)),
+        ("h", lambda e: texture.sample_separable(e["hm"], e["u"], e["v"],
+                                                 mode=ts.uv_mode)),
+        ("dx2", lambda e: (e["ux"][:, None, :].expand(I, S, S)
+                           - e["eye"][0]) ** 2),
+        ("dz2", lambda e: (e["uz"][:, :, None].expand(I, S, S)
+                           - e["eye"][2]) ** 2),
+        ("d2", lambda e: e["dx2"] + e["dz2"]),
+        ("dist", lambda e: math3d.sqrt_rn(e["d2"])),
+        ("ge", lambda e: 2.0 * e["inst"].extents[:, 0]),
+        ("lod", lambda e: torch.clamp(torch.floor(torch.log2(torch.clamp(
+            e["ge"], min=1e-20))), 0, e["lr"].shape[0] - 1).long()),
+        ("rng", lambda e: e["lr"][e["lod"]][:, None, None]),
+        ("start", lambda e: e["rng"] * 0.85),
+        ("num", lambda e: e["dist"] - e["start"]),
+        ("den", lambda e: e["rng"] - e["start"]),
+        ("ratio", lambda e: e["num"] / e["den"]),
+        ("k", lambda e: torch.clamp(e["ratio"], 0.0, 1.0)),
+        ("frac", lambda e: (((e["g"] + 1.0) * 0.5) * gs * 0.5 - torch.floor(
+            ((e["g"] + 1.0) * 0.5) * gs * 0.5)) * 2.0 / gs),
+        ("x_m", lambda e: e["ux"][:, None, :].expand(I, S, S)
+         - e["frac"][None, None, :] * e["ge"][:, None, None] * e["k"]),
+        ("z_m", lambda e: e["uz"][:, :, None].expand(I, S, S)
+         - e["frac"][None, :, None] * e["ge"][:, None, None] * e["k"]),
+        ("h_m", lambda e: vertex._blend_even(e["h"], e["k"])),
+        ("y", lambda e: e["h_m"] * e["max_h"]),
+        ("vis", lambda e: texture.sample_separable(torch.cat(
+            [e["albedo"], e["nrm"], e["field"][..., None]], dim=-1),
+            e["u"], e["v"], mode=ts.uv_mode)),
+        ("alb_m", lambda e: vertex._blend_even(e["vis"][..., 0:3], e["k"])),
+        ("nrm_m", lambda e: vertex._blend_even(e["vis"][..., 3:6], e["k"])),
+        ("shad_m", lambda e: vertex._blend_even(e["vis"][..., 6], e["k"])),
+        ("nrm_sq", lambda e: e["nrm_m"] * e["nrm_m"]),
+        ("nrm_len2", lambda e: (e["nrm_sq"][..., 0:1] + e["nrm_sq"][..., 1:2])
+         + e["nrm_sq"][..., 2:3]),
+        ("nrm_unit", lambda e: e["nrm_m"] / math3d.sqrt_rn(e["nrm_len2"]
+                                                          + 1e-20)),
+    ]
+    env = dict(x)
+    for name, fn in steps:
+        env[name] = fn(env)
+    return env, steps
+
+
+def step_diffs(ts, host: dict, device) -> dict:
+    """Per step of ``vertex_steps``: (elements differing on the card from
+    the CPU in the card's own chain, and in the step alone from the CPU's
+    values)."""
+    want, steps = vertex_steps(ts, host)
+    chain, _ = vertex_steps(ts, _to(host, device))
+    moved = _to(want, device)
+    out = {}
+    for name, fn in steps:
+        out[name] = (bits_differ(chain[name], want[name]),
+                     bits_differ(fn(moved), want[name]))
+    return out
+
+
+def vertex_stage_bits(device) -> dict:
+    """Phase 15's vertex-stage check at VERTEX_MODE camera VERTEX_CAMERA
+    (ROADMAP C). The CPU's inputs of the vertex stage (selection, eye,
+    textures, shadow field), moved to the card, go through
+    ``vertex_geometry`` and ``vertex_attrs``, setup and instance bboxes on
+    both devices, and through the stage's operations one by one
+    (``step_diffs``); each output is compared bit for bit, and so are the
+    poses, LOD ranges, boot cube's transforms, mesh receivers'
+    ``sample_points_matmul``, normal field and prepass of the card's own
+    renderer, and the operations the stage used before (torch's float32
+    sqrt, its sum of the normal's squares, the einsum sampler). Raises
+    unless the stage's ``world`` and ``attrs``, the poses and the frame's
+    work items (the card's renderer at its own camera) are equal on both
+    devices. Returns {step: differing elements}."""
+    import torch
+
+    from vrenderer_tpu_torch import workloads
+    from vrenderer_tpu_torch.ops import raster, raster_cuda, texture, vertex
+    from vrenderer_tpu_torch.terrain import quadtree
+    from vrenderer_tpu_torch.utils import math3d
+
+    mode, i = VERTEX_MODE, VERTEX_CAMERA
+    rc, params, cams = workloads.build(mode, "cpu")
+    rg, params_g, _ = workloads.build(mode, device)
+    cfg, ts = rc.config, rc.config.terrain
+    cam = cams.frame(i)
+    pre = workloads.frame_prepass(rc, params, cam.eye, mode)
+    vc = rc._view(cam)
+    sh = rc._shadow_inputs(vc, params, None, pre)
+    lr = ts.lod_ranges()
+    inst = rc._clip_active(quadtree.select_all_surfaces(
+        ts, vc["camera_pos"], math3d.frustum_planes(vc["world_to_clip"]),
+        lr))
+    host = {"inst": inst, "eye": vc["camera_pos"], "wtc": vc["world_to_clip"],
+            "hm": rc.heightmap, "albedo": rc.albedo, "field": sh.field,
+            "nrm": rc._nrm_field, "max_h": params.max_height, "lr": lr,
+            "tri": rc.tri_indices}
+
+    def stage(x):
+        geom = vertex.vertex_geometry(ts, x["inst"], x["eye"], x["hm"],
+                                      x["max_h"], x["lr"])
+        attrs = vertex.vertex_attrs(ts, geom, x["albedo"], x["field"],
+                                    x["nrm"])
+        comp = raster.setup_components(geom.world, attrs, x["inst"].valid,
+                                       x["tri"], x["wtc"], cfg.width,
+                                       cfg.height)
+        bbox, usable, dist = raster_cuda.instance_bbox_components(
+            comp, cfg.width, cfg.height, x["inst"].valid)
+        return {"world": geom.world, "attrs": attrs,
+                "clip": torch.stack(comp.vert_clip), "bbox": bbox,
+                "usable": usable, "dist": dist}
+
+    want = stage(host)
+    card = stage(_to(host, device))
+    diff = {k: bits_differ(card[k], want[k]) for k in want}
+    steps = step_diffs(ts, host, device)
+    env, _ = vertex_steps(ts, host)
+    if (bits_differ(torch.stack([env["x_m"], env["y"], env["z_m"]], -1),
+                    want["world"])
+            or bits_differ(env["nrm_unit"], want["attrs"][..., 3:6])):
+        raise RuntimeError("vertex_steps is out of step with ops/vertex.py")
+    vis = torch.cat([host["albedo"], host["nrm"], host["field"][..., None]],
+                    -1)
+    # what the stage did before: torch's float32 sqrt and its sum over the
+    # normal's squares, and the einsum form of the sampler (the JAX
+    # package's), each alone from the CPU's values
+    ug, vg = _to((env["u"], env["v"]), device)
+    diff["dist, torch.sqrt"] = bits_differ(torch.sqrt(env["d2"].to(device)),
+                                           torch.sqrt(env["d2"]))
+    diff["nrm_len2, torch.sum"] = bits_differ(
+        torch.sum(env["nrm_sq"].to(device), dim=-1, keepdim=True),
+        torch.sum(env["nrm_sq"], dim=-1, keepdim=True))
+    for name, tex in (("heights", host["hm"]), ("vis", vis)):
+        rows, ein = einsum_separable(tex, env["u"], env["v"])
+        rows_g, ein_g = einsum_separable(tex.to(device), ug, vg)
+        diff[f"{name}, einsum rows"] = bits_differ(rows_g, rows)
+        diff[f"{name}, einsum"] = bits_differ(ein_g, ein)
+    # the poses, LOD ranges, boot cube's transforms, its receivers'
+    # samples, normal field and prepass of the card's own renderer
+    _, _, cams_g = workloads.build(mode, device)
+    diff["cameras"] = sum(bits_differ(a, b) for a, b in zip(cams_g, cams))
+    fly = workloads.cameras("1080p", rc.heightmap, ts.world_size)
+    fly_g = workloads.cameras("1080p", rg.heightmap, ts.world_size)
+    diff["flythrough cameras"] = sum(bits_differ(a, b)
+                                     for a, b in zip(fly_g, fly))
+    diff["lod ranges"] = bits_differ(ts.lod_ranges(device), lr)
+    sw, sa = rc._scene_wa(params)
+    sw_g, sa_g = rg._scene_wa(params_g)
+    diff["scene world"] = bits_differ(sw_g, sw)
+    diff["scene attrs"] = bits_differ(sa_g, sa)
+    diff["scene top world"] = bits_differ(
+        rg._scene_top_world(rg.scene_transforms),
+        rc._scene_top_world(rc.scene_transforms))
+    pts = torch.cat([sw[b, :3 * n] for b, n in
+                     enumerate(rc._scene_block_nreal)])
+    u = texture.world_to_uv(pts[:, 0], float(ts.world_size))
+    v = texture.world_to_uv(pts[:, 2], float(ts.world_size))
+    diff["receiver samples"] = bits_differ(texture.sample_points_matmul(
+        *_to((pre[1], u, v), device)), texture.sample_points_matmul(
+            pre[1], u, v))
+    diff["normal field"] = bits_differ(rg._nrm_field, rc._nrm_field)
+    pre_g = workloads.frame_prepass(rg, params_g, cam.eye.to(device), mode)
+    diff["prepass field"] = bits_differ(pre_g[0], pre[0])
+    diff["prepass line"] = bits_differ(pre_g[1], pre[1])
+    items = int(rc.raster_inputs(cam, params, pre)[1].num_items)
+    items_g = int(rg.raster_inputs(cams_g.frame(i), params_g,
+                                   pre_g)[1].num_items)
+    diff["work items"] = items_g - items
+    log(f"vertex stage bits ({mode} camera {i}, card against CPU, elements "
+        f"differing): " + ", ".join(f"{k} {v}" for k, v in diff.items())
+        + f"; work items {items_g} (card), {items} (CPU); the stage's "
+        f"operations (in the card's chain, alone): " + ", ".join(
+            f"{k} {a}/{b}" for k, (a, b) in steps.items()))
+    bad = [k for k in ("world", "attrs", "cameras", "flythrough cameras",
+                       "work items") if diff[k]]
+    if bad:
+        raise RuntimeError(f"vertex stage at {mode} camera {i}: {bad} differ "
+                           f"between the card and the CPU")
+    return {**diff, "steps": steps}
+
+
 def phase_workloads(device, card: str) -> tuple:
     """Phase 15 (module docstring). Returns the kernels' launches over the
     steady loops and their checks at these inputs."""
@@ -1971,6 +2187,7 @@ def phase_workloads(device, card: str) -> tuple:
     with np.load(REPO / "tests" / "workload_counts_jax.npz") as f:
         stored = {k: f[k] for k in f.files}
     total, runs, b1, b2, passes = Counter(), {}, {}, {}, None
+    vbits = vertex_stage_bits(device)
     for name, mode, quant, res in WORKLOAD_VARIANTS:
         run = workload_run(name, mode, quant, res, device, stored, card)
         total.update(run["launches"])
@@ -2002,11 +2219,94 @@ def phase_workloads(device, card: str) -> tuple:
                 + f"; {time.perf_counter() - t1:.1f} s")
         del run, r
     secs = time.perf_counter() - t0
-    print(json.dumps({"workloads": runs, "passes_4k": passes,
+    print(json.dumps({"workloads": runs, "vertex_stage_bits": vbits,
+                      "passes_4k": passes,
                       "pass_camera": workloads.PASS_CAMERA, "seconds": secs,
                       "device": card}), flush=True)
     log(f"workloads phase: {len(WORKLOAD_VARIANTS)} variants in {secs:.1f} s")
     return dict(total), b1, b2
+
+
+# phase 16: the probes' kernels (vrenderer_tpu_torch/probes): the case each
+# kernel's JSON entry reports, and the TPU kernels it replaces (file:line of
+# the Pallas kernel function, then the others of its probes)
+PROBE_KERNELS = {
+    "probe_sweep": ("peak", "fma", "scripts/probe_peak.py:56",
+                    ["scripts/probe_fma.py:29"]),
+    "probe_eval": ("eval", "eval_edges", "scripts/probe_mosaic.py:43",
+                   ["scripts/probe_pack2.py:48", "scripts/probe_pack2.py:66",
+                    "scripts/probe_pack2.py:111", "scripts/probe_exact.py:48",
+                    "scripts/probe_exact.py:72",
+                    "scripts/probe_exact.py:91"]),
+    "probe_merge": ("merge", "hotspot_packed64",
+                    "scripts/probe_transposed.py:35",
+                    ["scripts/probe_transposed.py:47"]),
+    "probe_window": ("window", "coef_float4", "scripts/probe_window.py:55",
+                     ["scripts/probe_window.py:73",
+                      "scripts/probe_window.py:91"]),
+}
+
+
+def phase_probes(device, card: str) -> list:
+    """Phase 16 (module docstring). Returns the probes' kernel entries."""
+    import torch
+
+    from vrenderer_tpu_torch.probes import eval as peval
+    from vrenderer_tpu_torch.probes import merge, peak, window
+
+    t0 = time.perf_counter()
+    mods = {"peak": peak, "eval": peval, "merge": merge, "window": window}
+    wrappers = {"peak": (peak.sweep, peak.ev_chain),
+                "eval": (peval.evaluate,), "merge": (merge.merge,),
+                "window": (window.window,)}
+    for fns in wrappers.values():
+        for fn in fns:
+            fn.launches = 0
+    res = {}
+    for name, mod in mods.items():
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            res[name] = mod.run(device)
+        torch.cuda.synchronize()
+        log(f"probe {name} ({card}; each case equal to its plain version "
+            f"bit for bit; {time.perf_counter() - t1:.1f} s): " + "; ".join(
+                f"{k} " + ", ".join(
+                    f"{f} {v[f]:.6g}" for f in (
+                        "ms", "plain_ms", "bound_ms", "tflop_s",
+                        "g_elem_ops_s", "triangle_bytes_per_item",
+                        "triangle_gb_s", "ns_per_pair", "max_rel_err_vs_f64",
+                        "g_pairs_s", "gb_s", "library_ms")
+                    if isinstance(v.get(f), (int, float)))
+                for k, v in res[name].items() if isinstance(v, dict)
+                and "ms" in v))
+        if "sass" in res[name]:
+            log(f"probe {name} SASS: " + "; ".join(
+                f"{re.sub(r'_ZN.*?_cu_[0-9a-f]+', '', k)}: " + ", ".join(
+                    f"{op} x{n}" for op, n in sorted(ops.items()))
+                for k, ops in sorted(res[name]["sass"].items())))
+    launched = {name: sum(fn.launches for fn in fns)
+                for name, fns in wrappers.items()}
+    if not all(launched.values()):
+        raise RuntimeError(f"probe kernels never launched: {launched}")
+    entries = []
+    for kname, (probe, case, replaces, also) in PROBE_KERNELS.items():
+        row = res[probe][case]
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": "vrenderer_tpu_torch/csrc/probes.cu",
+            "replaces": replaces, "also_replaces": also,
+            "launches": launched[probe], "case": case,
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+            "cases": {k: v for k, v in res[probe].items()
+                      if isinstance(v, dict) and "ms" in v}})
+    print(json.dumps({"probes": {k: {c: v for c, v in r.items()
+                                     if c != "sass"}
+                                 for k, r in res.items()},
+                      "seconds": time.perf_counter() - t0, "device": card}),
+          flush=True)
+    log(f"probes phase: {time.perf_counter() - t0:.1f} s")
+    return entries
 
 
 def main() -> int:
@@ -2037,7 +2337,7 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     log(f"build: {lib.relative_to(REPO)} in "
         f"{time.perf_counter() - t0:.1f} s; ptxas: {'; '.join(ptxas)}")
-    log(f"shared-memory atomics (SASS): {sass_atomics(lib)}")
+    log(f"shared-memory atomics (SASS): {sass_atomics()}")
 
     r, params, cams = bench_renderer(device)
     prepass = r.cached_horizon_prepass(params)
@@ -2080,6 +2380,7 @@ def main() -> int:
     ed_b1, ed_b2, ed_launches = phase_editor(device, card)
     sh_launches, sh = phase_sharded(device, card, params, cams)
     wl_launches, wl_b1, wl_b2 = phase_workloads(device, card)
+    probe_entries = phase_probes(device, card)
 
     src = "vrenderer_tpu_torch/csrc/raster.cu"
     print(json.dumps({"kernels": [
@@ -2105,13 +2406,14 @@ def main() -> int:
          "library_ms": None, "sharded_launches": sh_launches["raster_zid"],
          "sharded": sh["raster_zid"]},
         {"name": "raster_resolve", "route": "cuda", "source": src,
-         "replaces": "vrenderer_tpu/ops/raster_pallas.py:1573",
+         "replaces": "vrenderer_tpu/ops/raster_pallas.py:1384",
          "launches": two_launches["raster_resolve"],
          "filter_launches": two_launches["raster_filter"], **kern_res,
          "library_ms": None,
          "sharded_launches": sh_launches["raster_resolve"],
          "sharded_filter_launches": sh_launches["raster_filter"],
          "sharded": sh["raster_resolve"]},
+        *probe_entries,
     ]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -31,12 +31,16 @@ def test_package_imports_without_jax():
     # utils.{math3d, native}, terrain.{heightmap, grid, quadtree},
     # ops.{texture, vertex, raster, raster_cuda, lighting, shadow, _build},
     # models.{mesh, scene}, profiler.profiler, parallel.sharded,
-    # examples.{hello_triangle, walkthrough}, workloads and the subpackages
+    # examples.{hello_triangle, walkthrough}, workloads,
+    # probes.{common, peak, eval, merge, window, __main__} and the
+    # subpackages
     names = proc.stdout.split()
-    assert len(names) >= 34
+    assert len(names) >= 41
     for m in ("editor", "entry", "examples.hello_triangle",
               "examples.walkthrough", "models.scene", "parallel.sharded",
-              "workloads"):
+              "workloads", "probes", "probes.common", "probes.peak",
+              "probes.eval", "probes.merge", "probes.window",
+              "probes.__main__"):
         assert f"vrenderer_tpu_torch.{m}" in names
 
 

@@ -223,10 +223,13 @@ def flythrough(num_frames: int, world_size: float = 2048.0,
     """The deterministic orbit + descent flythrough of the 1080p benchmark
     (camera.py:259-302 of the JAX package). With a heightmap the path keeps
     ``clearance`` above the terrain. Fields carry a leading (num_frames,)
-    axis; ``Camera.frame(i)`` picks one."""
+    axis; ``Camera.frame(i)`` picks one. The path is computed on the host
+    and moved to ``device`` (the heightmap's): the card's cos and sin round
+    otherwise, and the views follow the poses' last bits."""
     if heightmap is not None:
         device = heightmap.device
-    t = math3d.linspace(0.0, 1.0, num_frames, device=device)
+        heightmap = heightmap.cpu()
+    t = math3d.linspace(0.0, 1.0, num_frames)
     ang = t * 2.0 * math.pi
     r = world_size * radius_frac * (1.0 - 0.5 * t)
     alt = altitude * (1.0 - 0.6 * t) + 40.0
@@ -248,6 +251,7 @@ def flythrough(num_frames: int, world_size: float = 2048.0,
          (r * 0.3) * torch.sin(look_ang)],
         dim=-1,
     )
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
-                      device=device).expand(eye.shape).contiguous()
-    return Camera(eye=eye, target=target, up=up)
+    up = torch.tensor([0.0, 1.0, 0.0],
+                      dtype=torch.float32).expand(eye.shape).contiguous()
+    return Camera(eye=eye.to(device), target=target.to(device),
+                  up=up.to(device))

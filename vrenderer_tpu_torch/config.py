@@ -55,9 +55,11 @@ class TerrainSettings:
         return self.grid_size * self.grid_size * 2
 
     def lod_ranges(self, device=None) -> torch.Tensor:
-        """LOD visibility ranges, range[i] = 4 * 2^i (QuadTree.cpp:234-241)."""
-        i = torch.arange(self.max_lods, dtype=torch.float32, device=device)
-        return 4.0 * torch.exp2(i)
+        """LOD visibility ranges, range[i] = 4 * 2^i (QuadTree.cpp:234-241),
+        computed on the host and moved to ``device``, so every device holds
+        the host's bits."""
+        i = torch.arange(self.max_lods, dtype=torch.float32)
+        return (4.0 * torch.exp2(i)).to(device)
 
 
 @dataclasses.dataclass(frozen=True)

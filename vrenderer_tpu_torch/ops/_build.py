@@ -1,6 +1,7 @@
 """Builds the package's CUDA sources and loads them with ctypes.
 
 On first use, ``load()`` runs ``nvcc`` on ``vrenderer_tpu_torch/csrc/*.cu``
+(the rasterizer, ``raster.cu``, and the microbenchmarks, ``probes.cu``)
 into one shared library with a plain C interface under
 ``vrenderer_tpu_torch/_build/<hash>/``, keyed by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one is reused. The
@@ -24,7 +25,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # the rasterizer's plane evaluations must not contract into FMA
+    # the rasterizer's plane evaluations must not contract into FMA; the
+    # probes spell out each FMA they time (__fmaf_rn)
     "--fmad=false",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
@@ -98,8 +100,31 @@ def load() -> ctypes.CDLL:
         lib.vrt_filter_winners.argtypes = [p, i, p, i, i, i, i, i, i, i, p,
                                            p, p]
         lib.vrt_raster_depth.argtypes = [p, p, i, i, i, i, i, i, i, i, p, p]
+        lib.vrt_probe_sweep.argtypes = [p, p, p, i, i, i, i, f, f, p]
+        lib.vrt_probe_eval.argtypes = [p, p, i, i, i, i, i, i, p, i, p, p, p,
+                                       p]
+        lib.vrt_probe_merge.argtypes = [p, i, i, i, i, i, p, p, p]
+        lib.vrt_probe_window.argtypes = [p, i, i, p, i, i, i, i, i, p, p]
         for fn in (lib.vrt_raster, lib.vrt_raster_zid, lib.vrt_raster_resolve,
-                   lib.vrt_filter_winners, lib.vrt_raster_depth):
+                   lib.vrt_filter_winners, lib.vrt_raster_depth,
+                   lib.vrt_probe_sweep, lib.vrt_probe_eval,
+                   lib.vrt_probe_merge, lib.vrt_probe_window):
             fn.restype = i
         _loaded = lib
     return _loaded
+
+
+def launch(entry: str, device, *args) -> None:
+    """Call the library's ``entry`` with ``args`` and the current stream of
+    ``device``, a CUDA device; raise if the launch failed (the C function
+    returns the CUDA error code)."""
+    import torch
+
+    if device.type != "cuda":
+        raise ValueError(f"{entry} runs on a CUDA device, not {device}")
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")

@@ -58,6 +58,7 @@ from typing import NamedTuple
 
 import torch
 
+from vrenderer_tpu_torch.ops import _build
 from vrenderer_tpu_torch.ops.raster import F32_FAR, TriSetup
 
 NUM_ATTRS = 8
@@ -260,22 +261,6 @@ def _check(vis: torch.Tensor, coef: torch.Tensor | None, work: WorkList):
             raise ValueError("raster inputs must be contiguous")
 
 
-def _launch(entry: str, device: torch.device, *args) -> None:
-    """Call the library's ``entry`` with ``args`` and the current stream of
-    ``device``; raise if the launch failed."""
-    from vrenderer_tpu_torch.ops import _build
-
-    if device.type != "cuda":
-        raise ValueError(f"no rasterizer for device {device}")
-
-    lib = _build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
-
-
 def _zid_outputs(width: int, height: int, device: torch.device):
     """Empty z (H, W) float32 and id (H, W) int32."""
     return (torch.empty((height, width), dtype=torch.float32, device=device),
@@ -302,10 +287,11 @@ def rasterize(packed: PackedTris, work: WorkList, width: int, height: int,
     attrs = torch.empty((height, width, NUM_ATTRS), dtype=torch.float32,
                         device=device)
     tiles_x, _ = _tiles(width, height, tile)
-    _launch("vrt_raster", device, vis.data_ptr(), coef.data_ptr(),
-            work.items.data_ptr(), work.items.shape[0], vis.shape[1], tiles_x,
-            tile, side, cluster, width, height, int(reverse_z),
-            float(wire_px), z.data_ptr(), ids.data_ptr(), attrs.data_ptr())
+    _build.launch("vrt_raster", device, vis.data_ptr(), coef.data_ptr(),
+                  work.items.data_ptr(), work.items.shape[0], vis.shape[1],
+                  tiles_x, tile, side, cluster, width, height, int(reverse_z),
+                  float(wire_px), z.data_ptr(), ids.data_ptr(),
+                  attrs.data_ptr())
     rasterize.launches += 1
     return z, ids, attrs
 
@@ -327,10 +313,10 @@ def rasterize_zid(packed: PackedTris, work: WorkList, width: int,
                                    reverse_z)
     z, ids = _zid_outputs(width, height, device)
     tiles_x, _ = _tiles(width, height, tile)
-    _launch("vrt_raster_zid", device, packed.vis.data_ptr(),
-            work.items.data_ptr(), work.items.shape[0], packed.vis.shape[1],
-            tiles_x, tile, side, cluster, width, height, int(reverse_z),
-            z.data_ptr(), ids.data_ptr())
+    _build.launch("vrt_raster_zid", device, packed.vis.data_ptr(),
+                  work.items.data_ptr(), work.items.shape[0],
+                  packed.vis.shape[1], tiles_x, tile, side, cluster, width,
+                  height, int(reverse_z), z.data_ptr(), ids.data_ptr())
     rasterize_zid.launches += 1
     return z, ids
 
@@ -387,9 +373,9 @@ def filter_work_to_winners(work: WorkList, ids: torch.Tensor,
     items = torch.empty_like(work.items)
     live = torch.empty((n, n_sub * n_win), dtype=torch.bool, device=device)
     tiles_x, _ = _tiles(width, height, tile)
-    _launch("vrt_filter_winners", device, work.items.data_ptr(), n,
-            ids.data_ptr(), tris_per_inst, tiles_x, tile, sub_h, win_w, width,
-            height, items.data_ptr(), live.data_ptr())
+    _build.launch("vrt_filter_winners", device, work.items.data_ptr(), n,
+                  ids.data_ptr(), tris_per_inst, tiles_x, tile, sub_h, win_w,
+                  width, height, items.data_ptr(), live.data_ptr())
     filter_work_to_winners.launches += 1
     return WorkList(items=items, num_items=work.num_items), live
 
@@ -422,10 +408,11 @@ def rasterize_resolve(packed: PackedTris, work: WorkList, live: torch.Tensor,
     attrs = torch.empty((height, width, NUM_ATTRS), dtype=torch.float32,
                         device=device)
     tiles_x, _ = _tiles(width, height, tile)
-    _launch("vrt_raster_resolve", device, packed.coef.data_ptr(),
-            work.items.data_ptr(), live.data_ptr(), work.items.shape[0], I, T,
-            tiles_x, tile, sub_h, win_w, _resolve_band(tile, sub_h), width,
-            height, ids.data_ptr(), attrs.data_ptr())
+    _build.launch("vrt_raster_resolve", device, packed.coef.data_ptr(),
+                  work.items.data_ptr(), live.data_ptr(), work.items.shape[0],
+                  I, T, tiles_x, tile, sub_h, win_w,
+                  _resolve_band(tile, sub_h), width, height, ids.data_ptr(),
+                  attrs.data_ptr())
     rasterize_resolve.launches += 1
     return attrs
 
@@ -461,9 +448,9 @@ def rasterize_depth(vis: torch.Tensor, work: WorkList, width: int,
         return rasterize_depth_plain(vis, work, width, height, tile)
     z = torch.empty((height, width), dtype=torch.float32, device=device)
     tiles_x, _ = _tiles(width, height, tile)
-    _launch("vrt_raster_depth", device, vis.data_ptr(), work.items.data_ptr(),
-            work.items.shape[0], vis.shape[1], tiles_x, tile, side, cluster,
-            width, height, z.data_ptr())
+    _build.launch("vrt_raster_depth", device, vis.data_ptr(),
+                  work.items.data_ptr(), work.items.shape[0], vis.shape[1],
+                  tiles_x, tile, side, cluster, width, height, z.data_ptr())
     rasterize_depth.launches += 1
     return z
 

@@ -230,18 +230,6 @@ def shear_map_heights(depth_map: torch.Tensor, covered: torch.Tensor
     return torch.where(covered, h, torch.full_like(h, -1e9))
 
 
-def _lattice_taps(u: torch.Tensor, size: int):
-    """The two clamped texels and bilinear weights of ``interp_matrix``
-    (lattice addressing): w0 = 1 - (x - i0), w1 = 1 - ((i0 + 1) - x),
-    rounded as the JAX package's |x - t| weights are."""
-    x = texture.texel_coords(u, size)
-    i0 = torch.floor(x)
-    w0 = 1.0 - (x - i0)
-    w1 = 1.0 - ((i0 + 1.0) - x)
-    i0 = i0.long()
-    return i0, torch.clamp(i0 + 1, max=size - 1), w0, w1
-
-
 def factors_from_sun_shear_map(s0: torch.Tensor, heightmap: torch.Tensor,
                                max_height: torch.Tensor, world_size: float,
                                kx, kz, span_x, span_z, sun_up,
@@ -269,9 +257,9 @@ def factors_from_sun_shear_map(s0: torch.Tensor, heightmap: torch.Tensor,
     uo = u[:, None, :] + offs[None, :, None]                     # (K, 2, Wt)
     vo = v[:, None, :] + offs[None, :, None]                     # (K, 2, Ht)
 
-    y0, y1, wy0, wy1 = _lattice_taps(vo, R)
+    y0, y1, wy0, wy1 = texture.bilinear_taps(vo, R)
     rows = (s0[y0] * wy0[..., None] + s0[y1] * wy1[..., None])   # (K,2,Ht,R)
-    x0, x1, wx0, wx1 = _lattice_taps(uo, R)
+    x0, x1, wx0, wx1 = texture.bilinear_taps(uo, R)
 
     def cols(i):                          # (K, 2[dv], 2[du], Ht, Wt)
         idx = i[:, None, :, None, :].expand(-1, 2, -1, Ht, -1)

@@ -126,7 +126,8 @@ def vertex_geometry(settings: TerrainSettings, instances: SelectedInstances,
     # morph factor from the UNmorphed position (terrain_vs.hlsl:46)
     wx = ux[:, None, :].expand(I, S, S)
     wz = uz[:, :, None].expand(I, S, S)
-    dist = torch.sqrt((wx - camera_pos[0]) ** 2 + (wz - camera_pos[2]) ** 2)
+    dist = math3d.sqrt_rn((wx - camera_pos[0]) ** 2
+                          + (wz - camera_pos[2]) ** 2)
     grid_extents = 2.0 * instances.extents[:, 0]
     k = morph_k(dist, grid_extents[:, None, None], lod_ranges)
 
@@ -154,9 +155,11 @@ def vertex_attrs(settings: TerrainSettings, geom: VertexGeom,
     alb_m = _blend_even(vis_s[..., 0:3], geom.k)
     nrm_m = _blend_even(vis_s[..., 3:6], geom.k)
     shad_m = _blend_even(vis_s[..., 6], geom.k)
-    nrm_m = nrm_m / torch.sqrt(
-        torch.sum(nrm_m * nrm_m, dim=-1, keepdim=True) + 1e-20
-    )
+    # the squares summed x, y, z in order, as the CPU's sum does; the
+    # card's reduction adds them in another order
+    sq = nrm_m * nrm_m
+    nrm_m = nrm_m / math3d.sqrt_rn(
+        (sq[..., 0:1] + sq[..., 1:2]) + sq[..., 2:3] + 1e-20)
     return torch.cat(
         [alb_m, nrm_m, shad_m[..., None], geom.h_m[..., None]], dim=-1
     )
@@ -195,7 +198,8 @@ def vertex_stage_exact(settings: TerrainSettings, instances: SelectedInstances,
     wx = ux[:, None, :].expand(I, S, S)
     wz = uz[:, :, None].expand(I, S, S)
 
-    dist = torch.sqrt((wx - camera_pos[0]) ** 2 + (wz - camera_pos[2]) ** 2)
+    dist = math3d.sqrt_rn((wx - camera_pos[0]) ** 2
+                          + (wz - camera_pos[2]) ** 2)
     grid_extents = 2.0 * instances.extents[:, 0]
     k = morph_k(dist, grid_extents[:, None, None], lod_ranges)
 

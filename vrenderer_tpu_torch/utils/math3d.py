@@ -223,3 +223,27 @@ def clip_to_screen(clip: torch.Tensor, width: int, height: int
     sx = (ndc[..., 0] * 0.5 + 0.5) * width
     sy = (0.5 - ndc[..., 1] * 0.5) * height
     return torch.stack([sx, sy], dim=-1), ndc[..., 2], inv_w
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to float32, as a fused multiply-add rounds it,
+    for float32 operands, with the same bits on every device. The float64
+    product of two float32 values is exact; the float64 sum is taken to odd
+    rounding (an even sum with a nonzero TwoSum error moves one ulp toward
+    the exact sum), and a float64 rounded to odd rounds to float32 as the
+    exact value would (53 >= 2 * 24 + 2 bits)."""
+    q = a.double() * b
+    s = q + c
+    bb = s - q
+    err = (q - (s - bb)) + (c - bb)
+    bits = s.view(torch.int64)
+    step = (torch.sign(err) * torch.sign(s)).long() * (1 - (bits & 1))
+    return (bits + step).view(torch.float64).float()
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root rounded correctly, with the same bits on every
+    device: PyTorch's float32 sqrt on the card is not always the correctly
+    rounded one, its float64 sqrt is, and rounding that to float32 rounds
+    as the exact root would (53 >= 2 * 24 + 2 bits)."""
+    return torch.sqrt(x.double()).float()

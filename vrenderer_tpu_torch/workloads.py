@@ -146,13 +146,14 @@ def cameras(mode: str, heightmap: torch.Tensor, world_size: float
     up = torch.tensor([[0.0, 1.0, 0.0]], dtype=torch.float32,
                       device=dev).repeat(n, 1)
     if mode == "envelope":
+        # on the host: the card's cos and sin round otherwise
         ang = torch.from_numpy(
-            2.0 * np.pi * np.arange(n, dtype=np.float32) / 64.0).to(dev)
+            2.0 * np.pi * np.arange(n, dtype=np.float32) / 64.0)
         eye = torch.tensor([[0.0, 800.0, 0.0]], dtype=torch.float32,
                            device=dev).repeat(n, 1)
         target = torch.stack([60.0 * torch.cos(ang), torch.zeros_like(ang),
                               60.0 * torch.sin(ang)], dim=-1)
-        return Camera(eye=eye, target=target, up=up)
+        return Camera(eye=eye, target=target.to(dev), up=up)
     hm = heightmap.cpu().numpy()
     # bench.py walks mapwalk's path over the 2048 m world (its
     # TerrainSettings' world_size)
