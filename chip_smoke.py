@@ -125,7 +125,15 @@ Phases, each printing one line and raising on failure:
     camera 40 the vertex stage's world and attrs, the poses and the work
     items bit for bit equal on the card and on the CPU, with each of the
     stage's operations and what it used before (torch's float32 sqrt, its
-    sum, the einsum sampler) compared alone (ROADMAP C); the
+    sum, the einsum sampler) compared alone (ROADMAP C); then
+    ``device_bits`` (ROADMAP C1): the horizon prepass on both devices and
+    op by op at envelope camera 40 and at the 1080p default sun
+    (``prepass_bits``; the march's divisions by host scalars it used before
+    alone and in the card's chain, and the card's division by a host
+    scalar against a tensor), the map samplers on both devices from one
+    depth map of the card's B2 at map camera 13 and at mapwalk's heaviest
+    light pass (``map_sampler_bits``), the view rays at 1080p camera 13 op
+    by op (``rays_steps``), in one ``device bits`` line, each count 0; the
     launches (B1 a frame, plus the horizon prepass's
     mesh-top field; B2 a frame in mapref and map, once in mapsnap and
     mapwalk per cell crossing plus the fill); the cached frames (the first,
@@ -149,7 +157,9 @@ Phases, each printing one line and raising on failure:
     ``vrt_probe_merge``: the per-pixel minimum with the lowest index merged
     by 64-bit and 32-bit shared atomics and by owner threads, at the
     probe's (2048 x 128) and a hot spot's (4096 x 4096) pairs, one region a
-    streaming multiprocessor; P4 ``vrt_probe_window``: probe_window's
+    streaming multiprocessor, beside the one PyTorch call that computes the
+    merge (``scatter_reduce_`` with "amin" over int64 (z bits, index)
+    keys; its library time); P4 ``vrt_probe_window``: probe_window's
     16-column group sums and the coefficient gather of B1's output pass at
     the horizon frame's camera 13, by scalar and by float4 loads. Every case
     bit for bit equal to its plain version; times, rates and bounds with the
@@ -267,6 +277,16 @@ WORKLOAD_B2 = ("mapwalk", "map-r1024")          # B2 at the heaviest light pass
 # phase 15: the view at which the card's vertex stage once rounded otherwise
 # and binned 3079 work items against the CPU's 3075 (ROADMAP C)
 VERTEX_MODE, VERTEX_CAMERA = "envelope", 40
+# phase 15: the horizon prepass held bit for bit on the card and the CPU
+# (ROADMAP C1) at the envelope's inputs (4096 m world) and at the 1080p
+# default sun (2048 m), the one the main path's cached prepass uses
+PREPASS_MODES = (VERTEX_MODE, "1080p")
+# shadow.horizon_shadow_field's defaults: march steps, softness, bias
+PREPASS_STEPS, PREPASS_SOFTNESS, PREPASS_BIAS = 24, 0.03, 0.5
+# phase 15: the map samplers' inputs held bit for bit, (mode, camera); None
+# takes the camera of the mode's heaviest light pass (JAX's light work items)
+MAP_BITS = (("map", 13), ("mapwalk", None))
+RAYS_CAMERA = 13      # the 1080p view whose rays are held bit for bit
 # ground-height eyes may see no sky: a frame may be covered whole
 WORKLOAD_FULL_COVER = ("ground", "mapwalk")
 VIS_BYTES = 64        # one triangle's 16 visibility floats
@@ -2043,12 +2063,13 @@ def vertex_steps(ts, x) -> dict:
     return env, steps
 
 
-def step_diffs(ts, host: dict, device) -> dict:
-    """Per step of ``vertex_steps``: (elements differing on the card from
-    the CPU in the card's own chain, and in the step alone from the CPU's
-    values)."""
-    want, steps = vertex_steps(ts, host)
-    chain, _ = vertex_steps(ts, _to(host, device))
+def step_diffs(run, host: dict, device) -> dict:
+    """Per step of ``run(x) -> (values, steps)`` (``vertex_steps``,
+    ``prepass_steps``, ``rays_steps``): (elements differing on the card
+    from the CPU in the card's own chain, and in the step alone from the
+    CPU's values)."""
+    want, steps = run(host)
+    chain, _ = run(_to(host, device))
     moved = _to(want, device)
     out = {}
     for name, fn in steps:
@@ -2112,7 +2133,7 @@ def vertex_stage_bits(device) -> dict:
     want = stage(host)
     card = stage(_to(host, device))
     diff = {k: bits_differ(card[k], want[k]) for k in want}
-    steps = step_diffs(ts, host, device)
+    steps = step_diffs(lambda x: vertex_steps(ts, x), host, device)
     env, _ = vertex_steps(ts, host)
     if (bits_differ(torch.stack([env["x_m"], env["y"], env["z_m"]], -1),
                     want["world"])
@@ -2171,11 +2192,337 @@ def vertex_stage_bits(device) -> dict:
         f"operations (in the card's chain, alone): " + ", ".join(
             f"{k} {a}/{b}" for k, (a, b) in steps.items()))
     bad = [k for k in ("world", "attrs", "cameras", "flythrough cameras",
-                       "work items") if diff[k]]
+                       "work items", "prepass field", "prepass line")
+           if diff[k]]
     if bad:
         raise RuntimeError(f"vertex stage at {mode} camera {i}: {bad} differ "
                            f"between the card and the CPU")
     return {**diff, "steps": steps}
+
+
+def prepass_steps(x, world_size: float, host_scalar: bool = False):
+    """The horizon prepass's operations one by one, as
+    ``shadow.horizon_shadow_field`` orders them with scene occluders and
+    the shadow line, from the inputs ``x`` (heights, max height, light,
+    occluder field): (values, [(step, fn)]). With ``host_scalar`` the march
+    divides by Python numbers, as it did before ``math3d.div_rn``."""
+    import torch
+
+    from vrenderer_tpu_torch.utils import math3d
+
+    def div(a, s):
+        return a / s if host_scalar else math3d.div_rn(a, s)
+
+    def shift(tex, d, size, dim):            # an axis of shadow._shift2d
+        s = d * (size - 1)
+        i0 = torch.floor(s).to(torch.int64)
+        f = s - i0.to(torch.float32)
+        idx = torch.arange(size, device=tex.device)
+        a = torch.index_select(tex, dim, torch.clamp(idx + i0, 0, size - 1))
+        b = torch.index_select(tex, dim,
+                               torch.clamp(idx + i0 + 1, 0, size - 1))
+        return a * (1.0 - f) + b * f
+
+    ws, n, bias = world_size, PREPASS_STEPS, PREPASS_BIAS
+    Ht, Wt = x["hm"].shape
+    steps = [
+        ("sun_sq", lambda e: (-e["light"]) * (-e["light"])),
+        ("sun_len2", lambda e: (e["sun_sq"][0:1] + e["sun_sq"][1:2])
+         + e["sun_sq"][2:3] + 1e-20),
+        ("sun_len", lambda e: math3d.sqrt_rn(e["sun_len2"])),
+        ("sun", lambda e: -e["light"] / e["sun_len"]),
+        ("horiz", lambda e: math3d.sqrt_rn(e["sun"][0] ** 2
+                                           + e["sun"][2] ** 2)),
+        ("sun_slope", lambda e: e["sun"][1] / torch.clamp(e["horiz"],
+                                                          min=1e-6)),
+        ("dir_u", lambda e: e["sun"][0] / torch.clamp(e["horiz"], min=1e-6)),
+        ("dir_v", lambda e: e["sun"][2] / torch.clamp(e["horiz"], min=1e-6)),
+        ("h_world", lambda e: e["hm"] * e["max_h"]),
+        ("occ_field", lambda e: torch.maximum(e["h_world"], e["occ"])),
+        ("excess -1", lambda e: torch.full_like(e["hm"], -1e9)),
+        ("line -1", lambda e: torch.full_like(e["hm"], -1e9)),
+    ]
+    t = ws / Wt
+    ratio = ((ws * 0.5) / t) ** (1.0 / (n - 1))
+    for k in range(n):
+        steps += [
+            (f"shift u {k}", lambda e, t=t: shift(
+                e["occ_field"], e["dir_u"] * (t / ws), Wt, 1)),
+            (f"shift v {k}", lambda e, t=t, k=k: shift(
+                e[f"shift u {k}"], e["dir_v"] * (t / ws), Ht, 0)),
+            (f"excess {k}", lambda e, t=t, k=k: torch.maximum(
+                e[f"excess {k - 1}"],
+                div(e[f"shift v {k}"] - (e["h_world"] + bias), t)
+                - e["sun_slope"])),
+            (f"line {k}", lambda e, t=t, k=k: torch.maximum(
+                e[f"line {k - 1}"], e[f"shift v {k}"] - t * e["sun_slope"])),
+        ]
+        t *= ratio
+    below = (lambda e: e["sun"][1] <= 0.0)
+    steps += [
+        ("lit", lambda e: 1.0 - torch.clamp(
+            div(e[f"excess {n - 1}"], PREPASS_SOFTNESS) + 1.0, 0.0, 1.0)),
+        ("field", lambda e: torch.where(below(e), torch.zeros_like(e["lit"]),
+                                        e["lit"])),
+        ("line", lambda e: torch.where(below(e), torch.full_like(
+            e["lit"], 1e9), e[f"line {n - 1}"])),
+    ]
+    env = dict(x)
+    for name, fn in steps:
+        env[name] = fn(env)
+    return env, steps
+
+
+def first_differing(steps: dict, col: int) -> str:
+    """The first step whose column ``col`` (0: the card's chain, 1: alone)
+    differs, with its count, or "none"."""
+    for name, counts in steps.items():
+        if counts[col]:
+            return f"{name} ({counts[col]})"
+    return "none"
+
+
+def prepass_bits(device) -> dict:
+    """Phase 15's prepass check (ROADMAP C1). At each of PREPASS_MODES the
+    renderer's cached horizon prepass (``Renderer._horizon_fields``: the
+    boot cube's mesh-top field, then ``horizon_shadow_field``) runs on the
+    card and on the CPU, and ``prepass_steps`` traces it op by op from the
+    CPU's inputs, with the repaired divisions and with the division by
+    host scalars it used before; the forms the sun's normalisation used
+    before (torch's sum and float32 sqrt) run alone too. A line a mode;
+    then the card's true division by a host scalar against a tensor on the
+    card, and float32 ``torch.sqrt`` against the correctly rounded root on
+    both devices. Raises unless field and line are equal at both modes.
+    Returns {mode: {name: differing elements}}."""
+    import torch
+
+    from vrenderer_tpu_torch import workloads
+    from vrenderer_tpu_torch.ops import shadow
+    from vrenderer_tpu_torch.utils import math3d
+
+    out, last = {}, None
+    for mode in PREPASS_MODES:
+        rc, params, _ = workloads.build(mode, "cpu")
+        rg, params_g, _ = workloads.build(mode, device)
+        ws = float(rc.config.terrain.world_size)
+        pre = rc.cached_horizon_prepass(params)
+        pre_g = rg.cached_horizon_prepass(params_g)
+        occ = shadow.mesh_top_field(
+            rc._scene_top_world(rc.scene_transforms),
+            torch.ones((1,), dtype=torch.bool), ws, rc.heightmap.shape[0])
+        occ_g = shadow.mesh_top_field(
+            rg._scene_top_world(rg.scene_transforms),
+            torch.ones((1,), dtype=torch.bool, device=device), ws,
+            rg.heightmap.shape[0])
+        host = {"hm": rc.heightmap, "max_h": params.max_height,
+                "light": params.light_direction, "occ": occ}
+        env, _ = prepass_steps(host, ws)
+        if (bits_differ(env["field"], pre[0])
+                or bits_differ(env["line"], pre[1])):
+            raise RuntimeError("prepass_steps is out of step with "
+                               "ops/shadow.py")
+        steps = step_diffs(lambda x: prepass_steps(x, ws), host, device)
+        before = step_diffs(lambda x: prepass_steps(x, ws, True), host,
+                            device)
+        moved = _to(env, device)
+        d = {"prepass field": bits_differ(pre_g[0], pre[0]),
+             "prepass line": bits_differ(pre_g[1], pre[1]),
+             "mesh top": bits_differ(occ_g, occ),
+             "sun_len2, torch.sum": bits_differ(
+                 torch.sum(moved["sun_sq"]), torch.sum(env["sun_sq"])),
+             "sun_len, torch.sqrt": bits_differ(
+                 torch.sqrt(moved["sun_len2"]), torch.sqrt(env["sun_len2"])),
+             "horiz, torch.sqrt": bits_differ(
+                 torch.sqrt(moved["sun"][0] ** 2 + moved["sun"][2] ** 2),
+                 torch.sqrt(env["sun"][0] ** 2 + env["sun"][2] ** 2)),
+             "excess, host scalar, alone": sum(
+                 v[1] for k, v in before.items() if k.startswith("excess")),
+             "lit, host scalar, alone": before["lit"][1]}
+        log(f"prepass bits ({mode}, world {ws:g} m, card against CPU, "
+            f"elements differing): " + ", ".join(
+                f"{k} {v}" for k, v in d.items())
+            + f"; first step to differ in the card's chain: repaired "
+            f"{first_differing(steps, 0)}, with host-scalar divisions "
+            f"{first_differing(before, 0)}; steps differing (chain/alone): "
+            + (", ".join(f"{k} {a}/{b}" for k, (a, b) in steps.items()
+                         if a or b) or "none")
+            + "; before (chain/alone): "
+            + (", ".join(f"{k} {a}/{b}" for k, (a, b) in before.items()
+                         if a or b) or "none"))
+        out[mode] = {**d, "steps": steps, "before": before}
+        last = env[f"excess {PREPASS_STEPS - 1}"]
+    # the card's division by a host scalar and by a tensor on the card,
+    # from the last mode's last excess, against the CPU's quotient and two
+    # reciprocal products (1/0.03 rounded to float32 from float64, and from
+    # float32's 0.03); sqrt on both devices
+    s = PREPASS_SOFTNESS
+    xg = last.to(device)
+    gen = torch.Generator().manual_seed(0)
+    r = torch.rand(1 << 20, generator=gen) * 1e3
+    div = {"x / 0.03": bits_differ(xg / s, last / s),
+           "x / tensor 0.03": bits_differ(
+               xg / torch.full((), s, device=device), last / s),
+           "x / 0.03 against x * fl32(1/0.03)": bits_differ(
+               xg / s, last * float(np.float32(1.0 / s))),
+           "x / 0.03 against x * fl32(1/fl32(0.03))": bits_differ(
+               xg / s, last * float(np.float32(1.0) / np.float32(s))),
+           "torch.sqrt, card": bits_differ(torch.sqrt(r.to(device)),
+                                           math3d.sqrt_rn(r)),
+           "torch.sqrt, CPU": bits_differ(torch.sqrt(r), math3d.sqrt_rn(r))}
+    log(f"division and sqrt (card against CPU unless named; {last.numel()} "
+        f"prepass texels, {r.numel()} roots against the correctly rounded "
+        f"root): " + ", ".join(f"{k} {v}" for k, v in div.items()))
+    out["division"] = div
+    bad = [f"{m}: {k}" for m in PREPASS_MODES
+           for k in ("prepass field", "prepass line") if out[m][k]]
+    if bad:
+        raise RuntimeError(f"horizon prepass differs between the card and "
+                           f"the CPU: {bad}")
+    return out
+
+
+def map_sampler_bits(device, stored: dict) -> dict:
+    """The map samplers on the card and the CPU from one depth map: at
+    each of MAP_BITS the card's light pass (B2) moved to the CPU, then
+    ``Renderer.shadow_field_from_map`` (``factors_from_sun_shear_map``)
+    and ``shadow_factors_from_map`` at the boot cube's vertices and at the
+    terrain lattice's 65536 texels on each device. Returns {input: {name:
+    differing elements}}."""
+    import torch
+
+    from vrenderer_tpu_torch import workloads
+    from vrenderer_tpu_torch.ops import shadow
+    from vrenderer_tpu_torch.utils import math3d
+
+    out = {}
+    for mode, i in MAP_BITS:
+        rc, params, cams = workloads.build(mode, "cpu")
+        rg, params_g, cams_g = workloads.build(mode, device)
+        if i is None:
+            i = int(np.argmax(stored[f"{mode}:light_work"]))
+        ts, res = rc.config.terrain, rc.config.shadow_resolution
+        ws = float(ts.world_size)
+        depth_g, wtc_g, z_range, _, shear_g = rg._light_depth_pass(
+            params_g, cams_g.eye[i], rg._scene_wa(params_g))
+        depth = depth_g.cpu()
+        wtc, *shear = shadow.sun_shear_matrices(
+            params.light_direction, ws, params.max_height, res)
+        sw = rc._scene_wa(params)[0]
+        mesh = torch.cat([sw[b, :3 * n] for b, n in
+                          enumerate(rc._scene_block_nreal)])
+        Ht, Wt = rc.heightmap.shape
+        gx = math3d.linspace(-ws / 2, ws / 2, Wt)
+        gz = math3d.linspace(-ws / 2, ws / 2, Ht)
+        lattice = torch.stack([gx[None, :].expand(Ht, Wt),
+                               rc.heightmap * params.max_height,
+                               gz[:, None].expand(Ht, Wt)], -1).reshape(-1, 3)
+        d = {"light matrices": bits_differ(wtc_g, wtc) + sum(
+                 bits_differ(a, b) for a, b in zip(shear_g, shear)),
+             "terrain factors": bits_differ(
+                 rg.shadow_field_from_map(depth_g, shear_g, params_g),
+                 rc.shadow_field_from_map(depth, shear, params))}
+        for name, pts in (("mesh receivers", mesh),
+                          ("lattice receivers", lattice)):
+            d[name] = bits_differ(
+                shadow.shadow_factors_from_map(depth_g, wtc_g, z_range,
+                                               pts.to(device)),
+                shadow.shadow_factors_from_map(depth, wtc, z_range, pts))
+        out[f"{mode} camera {i}"] = d
+    return out
+
+
+def rays_steps(renderer, x):
+    """``Renderer._view_rays``'s operations one by one from the view
+    constants ``x`` (clip_to_world, camera_pos): (values, steps)."""
+    import torch
+
+    from vrenderer_tpu_torch.utils import math3d
+
+    cfg = renderer.config
+
+    def axis(e, n):
+        dev = e["clip_to_world"].device
+        return math3d.div_rn(torch.arange(n, dtype=torch.float32, device=dev)
+                             + 0.5, n)
+
+    def grid(e):
+        yy, xx = torch.meshgrid(1.0 - e["y"] * 2.0, e["x"] * 2.0 - 1.0,
+                                indexing="ij")
+        one = torch.ones_like(xx)
+        return torch.stack([xx, yy, one, one], -1)
+
+    steps = [
+        ("x", lambda e: axis(e, cfg.width)),
+        ("y", lambda e: axis(e, cfg.height)),
+        ("clip", grid),
+        ("wpos", lambda e: e["clip"] @ e["clip_to_world"]),
+        ("world", lambda e: e["wpos"][..., :3] / e["wpos"][..., 3:4]),
+        ("ray", lambda e: e["world"] - e["camera_pos"]),
+        ("rays", lambda e: math3d.normalize_rn(e["ray"])),
+    ]
+    env = dict(x)
+    for name, fn in steps:
+        env[name] = fn(env)
+    return env, steps
+
+
+def rays_bits(device) -> dict:
+    """``Renderer._view_rays`` at the 1080p flythrough's RAYS_CAMERA on the
+    card and the CPU, op by op (``rays_steps``), with the forms it used
+    before alone (division by the frame size as a host scalar, torch's
+    ``normalize``). Returns {name: differing elements} and the steps."""
+    import torch
+
+    from vrenderer_tpu_torch import workloads
+    from vrenderer_tpu_torch.utils import math3d
+
+    rc, _, cams = workloads.build("1080p", "cpu")
+    rg, _, cams_g = workloads.build("1080p", device)
+    vc = rc._view(cams.frame(RAYS_CAMERA))
+    vc_g = rg._view(cams_g.frame(RAYS_CAMERA))
+    host = {k: vc[k] for k in ("clip_to_world", "camera_pos")}
+    env, _ = rays_steps(rc, host)
+    rays = rc._view_rays(vc)
+    if bits_differ(env["rays"], rays):
+        raise RuntimeError("rays_steps is out of step with renderer.py")
+    W = rc.config.width
+    xs = torch.arange(W, dtype=torch.float32) + 0.5
+    return {"view constants": sum(bits_differ(vc_g[k], vc[k]) for k in vc),
+            "view rays": bits_differ(rg._view_rays(vc_g), rays),
+            "x, host scalar, alone": bits_differ(xs.to(device) / W, xs / W),
+            "rays, normalize, alone": bits_differ(
+                math3d.normalize(env["ray"].to(device)),
+                math3d.normalize(env["ray"])),
+            "steps": step_diffs(lambda x: rays_steps(rc, x), host, device)}
+
+
+def device_bits(device, stored: dict) -> dict:
+    """Phase 15's shadow-phase and view-ray check (ROADMAP C1):
+    ``prepass_bits``, ``map_sampler_bits`` and ``rays_bits``, one ``device
+    bits`` line with every count. Raises unless every count is 0 (the
+    division and sqrt probe and the earlier forms run alone aside)."""
+    pre = prepass_bits(device)
+    maps = map_sampler_bits(device, stored)
+    rays = rays_bits(device)
+    counts = {}
+    for mode in PREPASS_MODES:
+        for k in ("prepass field", "prepass line", "mesh top"):
+            counts[f"{k} ({mode})"] = pre[mode][k]
+    for inp, d in maps.items():
+        counts.update({f"{k} ({inp})": v for k, v in d.items()})
+    counts.update({f"{k} (1080p camera {RAYS_CAMERA})": rays[k]
+                   for k in ("view constants", "view rays")})
+    log("device bits (card against CPU, elements differing): " + ", ".join(
+        f"{k} {v}" for k, v in counts.items()) + "; rays op by op "
+        "(chain/alone): " + ", ".join(
+            f"{k} {a}/{b}" for k, (a, b) in rays["steps"].items())
+        + f"; earlier forms alone: x / {WIDTH} as a host scalar "
+        f"{rays['x, host scalar, alone']}, torch normalize "
+        f"{rays['rays, normalize, alone']}")
+    bad = [k for k, v in counts.items() if v]
+    if bad:
+        raise RuntimeError(f"the card's bits differ from the CPU's: {bad}")
+    return {"counts": counts, "prepass": pre, "rays": rays}
 
 
 def phase_workloads(device, card: str) -> tuple:
@@ -2188,6 +2535,7 @@ def phase_workloads(device, card: str) -> tuple:
         stored = {k: f[k] for k in f.files}
     total, runs, b1, b2, passes = Counter(), {}, {}, {}, None
     vbits = vertex_stage_bits(device)
+    dbits = device_bits(device, stored)
     for name, mode, quant, res in WORKLOAD_VARIANTS:
         run = workload_run(name, mode, quant, res, device, stored, card)
         total.update(run["launches"])
@@ -2220,6 +2568,7 @@ def phase_workloads(device, card: str) -> tuple:
         del run, r
     secs = time.perf_counter() - t0
     print(json.dumps({"workloads": runs, "vertex_stage_bits": vbits,
+                      "device_bits": dbits,
                       "passes_4k": passes,
                       "pass_camera": workloads.PASS_CAMERA, "seconds": secs,
                       "device": card}), flush=True)

@@ -15,6 +15,11 @@ texture products as fused multiply-adds of their two taps
 correctly rounded sqrt (``math3d.sqrt_rn``) and the squares summed in
 order.
 
+So do the horizon prepass at the envelope's camera 40 and the map
+samplers from one depth map (ROADMAP C1): the card's true division by a
+Python number multiplies by its reciprocal, so they divide by a tensor on
+the card (``math3d.div_rn``).
+
 CPU cases check the host path; CUDA cases (marker ``cuda``) skip where
 there is no card. The file imports no JAX, so on the machine with the card
 it runs without the repository's conftest:
@@ -137,3 +142,47 @@ def test_vertex_stage_bits_match_the_host(device):
         assert _equal(got.view(torch.int32),
                       texture.sample_points_matmul(tex, pu, pv)
                       .view(torch.int32))
+
+
+def test_horizon_prepass_bits_match_the_host(device):
+    """The renderer's prepass at envelope camera 40 (the boot cube's
+    mesh-top field, then the march), field and shadow line."""
+    r_h, params_h, cams = workloads.build("envelope", device="cpu")
+    r, params, _ = workloads.build("envelope", device=device)
+    want = workloads.frame_prepass(r_h, params_h, cams.eye[40], "envelope")
+    got = workloads.frame_prepass(r, params, cams.eye[40].to(device),
+                                  "envelope")
+    for a, b in zip(got, want):
+        assert a.device.type == device.type and _equal(
+            a.view(torch.int32), b.view(torch.int32))
+
+
+# mapwalk's camera 62 rasters the most light work items (JAX's counts)
+@pytest.mark.parametrize("mode,camera", [("map", 13), ("mapwalk", 62)])
+def test_map_sampler_bits_match_the_host(device, mode, camera):
+    """The terrain factors (``factors_from_sun_shear_map``) and the PCF
+    factors of ``shadow_factors_from_map`` at the boot cube's vertices and
+    the terrain lattice, from the host's 256^2 light pass."""
+    r_h, params_h, cams = workloads.build(mode, device="cpu", shadow_res=256)
+    r, params, _ = workloads.build(mode, device=device, shadow_res=256)
+    depth, wtc, z_range, _, shear = r_h._light_depth_pass(
+        params_h, cams.eye[camera], r_h._scene_wa(params_h))
+    got = r.shadow_field_from_map(depth.to(device),
+                                  tuple(v.to(device) for v in shear), params)
+    want = r_h.shadow_field_from_map(depth, shear, params_h)
+    assert got.device.type == device.type and _equal(
+        got.view(torch.int32), want.view(torch.int32))
+    ws = float(r_h.config.terrain.world_size)
+    sw = r_h._scene_wa(params_h)[0]
+    mesh = torch.cat([sw[b, :3 * n]
+                      for b, n in enumerate(r_h._scene_block_nreal)])
+    g = math3d.linspace(-ws / 2, ws / 2, r_h.heightmap.shape[0])
+    n = g.shape[0]
+    lattice = torch.stack([g[None, :].expand(n, n),
+                           r_h.heightmap * params_h.max_height,
+                           g[:, None].expand(n, n)], -1).reshape(-1, 3)
+    for pts in (mesh, lattice):
+        got = shadow.shadow_factors_from_map(depth.to(device), wtc.to(device),
+                                             z_range, pts.to(device))
+        want = shadow.shadow_factors_from_map(depth, wtc, z_range, pts)
+        assert _equal(got.view(torch.int32), want.view(torch.int32))

@@ -58,9 +58,8 @@ def horizon_shadow_field(heightmap: torch.Tensor, max_height: torch.Tensor,
     S(x, z) = max_t(occ(x + t*sun_xz) - t*sun_slope), the lowest lit
     height at each texel (for ``shadow_line_factor``)."""
     Ht, Wt = heightmap.shape
-    sun = -light_direction
-    sun = sun / torch.sqrt(torch.sum(sun * sun) + 1e-20)
-    horiz = torch.sqrt(sun[0] ** 2 + sun[2] ** 2)
+    sun = math3d.normalize_rn(-light_direction)
+    horiz = math3d.sqrt_rn(sun[0] ** 2 + sun[2] ** 2)
     sun_slope = sun[1] / torch.clamp(horiz, min=1e-6)
     dir_u = sun[0] / torch.clamp(horiz, min=1e-6)
     dir_v = sun[2] / torch.clamp(horiz, min=1e-6)
@@ -81,13 +80,14 @@ def horizon_shadow_field(heightmap: torch.Tensor, max_height: torch.Tensor,
     for _ in range(num_steps):
         occ = _shift2d(occ_field, dir_u * (t / world_size),
                        dir_v * (t / world_size))
-        excess = torch.maximum(excess,
-                               (occ - (h_world + bias)) / t - sun_slope)
+        excess = torch.maximum(
+            excess, math3d.div_rn(occ - (h_world + bias), t) - sun_slope)
         if with_shadow_line:
             sline = torch.maximum(sline, occ - t * sun_slope)
         t *= ratio
 
-    lit = 1.0 - torch.clamp(excess / softness_slope + 1.0, 0.0, 1.0)
+    lit = 1.0 - torch.clamp(math3d.div_rn(excess, softness_slope) + 1.0,
+                            0.0, 1.0)
     below = sun[1] <= 0.0          # sun at or below the horizon: all shadow
     lit = torch.where(below, torch.zeros_like(lit), lit)
     if with_shadow_line:
@@ -102,7 +102,8 @@ def shadow_line_factor(y: torch.Tensor, sline: torch.Tensor,
     """Shadow factor of receivers at height ``y`` against the shadow-line
     field, with a ``softness_h``-meter penumbra ramp."""
     excess = sline - (y + bias)
-    return 1.0 - torch.clamp(excess / softness_h + 1.0, 0.0, 1.0)
+    return 1.0 - torch.clamp(math3d.div_rn(excess, softness_h) + 1.0, 0.0,
+                             1.0)
 
 
 # the overhead view of mesh_top_field: eye height and far plane
@@ -248,7 +249,7 @@ def factors_from_sun_shear_map(s0: torch.Tensor, heightmap: torch.Tensor,
     h_world = heightmap * max_height
     gx = math3d.linspace(-world_size / 2, world_size / 2, Wt, device=dev)
     gz = math3d.linspace(-world_size / 2, world_size / 2, Ht, device=dev)
-    dh = max_height / (num_slabs - 1)
+    dh = math3d.div_rn(max_height, num_slabs - 1)
     tap = 0.5 * pcf_px / (R - 1)
     hk = torch.stack([dh * k for k in range(num_slabs)])[:, None]
     u = (gx + hk * kx) / span_x + 0.5                           # (K, Wt)
@@ -294,10 +295,11 @@ def shadow_factors_from_map(depth_map: torch.Tensor, wtc: torch.Tensor,
     px = (ndc[:, 0] + 1.0) * 0.5 * R - 0.5
     py = (1.0 - ndc[:, 1]) * 0.5 * R - 0.5
     d = ndc[:, 2] - bias_m / z_range
+    last = torch.full((), R - 1, dtype=px.dtype, device=px.device)
     acc = torch.zeros_like(px)
     for tx, ty in ((-0.5, -0.5), (0.5, -0.5), (-0.5, 0.5), (0.5, 0.5)):
-        u01 = (px + tx * pcf_px) / (R - 1)
-        v01 = (py + ty * pcf_px) / (R - 1)
+        u01 = math3d.div_rn(px + tx * pcf_px, last)
+        v01 = math3d.div_rn(py + ty * pcf_px, last)
         md = texture.sample_points(depth_map, u01, v01)
         acc = acc + (md >= d).to(torch.float32)
     return acc / 4

@@ -128,4 +128,4 @@ def sample_points(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 
 def world_to_uv(world_xz: torch.Tensor, world_size: float) -> torch.Tensor:
     """uv = (worldPos.xz + worldSize/2) / worldSize (terrain_vs.hlsl:29-30)."""
-    return (world_xz + world_size * 0.5) / world_size
+    return math3d.div_rn(world_xz + world_size * 0.5, world_size)

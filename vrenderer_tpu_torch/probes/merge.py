@@ -10,6 +10,9 @@ B1's 64-bit (z, id) shared atomicMin, a 32-bit z atomicMin and an id pass
 (B2's native atomic), and owner threads without atomics. Two inputs:
 the probe's own (2048 pixels, 128 candidates) and a hot spot (a 64 x 64
 region with 4096 candidates each, as the light pass piles its triangles).
+Beside them, the one PyTorch call that computes the same merge
+(``merge_library``: ``scatter_reduce_`` with "amin" over int64 keys) is
+checked and timed.
 """
 
 from __future__ import annotations
@@ -66,6 +69,34 @@ def merge_plain(x: torch.Tensor, rows: int):
     return finalize(z, rows), finalize(ids.to(torch.int32), rows)
 
 
+def merge_library(x: torch.Tensor, rows: int, regions: int):
+    """The merge as one PyTorch call, timed beside the kernel and used
+    nowhere in the port: ``Tensor.scatter_reduce_(0, pixel, key, "amin",
+    include_self=True)`` over every region's pairs, each key an int64 (z
+    bits, k) (z >= +0.0, so its bits order as z). Returns (the call, (z,
+    id) (regions, rows, P // rows) of its result)."""
+    P, Kc = x.shape
+    dev = x.device
+    e = x[:, 0:1] * x[0:1, :] + x + 0.0
+    key = ((e.view(torch.int32).long() << 32)
+           | torch.arange(Kc, device=dev)).reshape(1, -1)
+    key = key.expand(regions, -1).reshape(-1)
+    pixel = (torch.arange(regions, device=dev)[:, None] * P
+             + torch.arange(P, device=dev).repeat_interleave(Kc)[None, :]
+             ).reshape(-1)
+    out = torch.full((regions * P,), torch.iinfo(torch.int64).max,
+                     dtype=torch.int64, device=dev)
+
+    def call():
+        return out.scatter_reduce_(0, pixel, key, "amin", include_self=True)
+
+    call()
+    z = (out >> 32).to(torch.int32).view(torch.float32).reshape(regions, P)
+    ids = (out & 0xFFFFFFFF).to(torch.int32).reshape(regions, P)
+    return call, (torch.stack([finalize(v, rows) for v in z]),
+                  torch.stack([finalize(v, rows) for v in ids]))
+
+
 def finalize(v: torch.Tensor, rows: int) -> torch.Tensor:
     """x-major pixel values (P,) -> row-major (rows, P // rows)."""
     return v.reshape(-1, rows).T.contiguous()
@@ -86,6 +117,17 @@ def run(device, small: bool = False) -> dict:
         x = merge_input(pixels, cands, device=device)
         zw, iw = merge_plain(x, rows)
         pairs = regions * pixels * cands
+        # the library call's function checked, then timed on the card (its
+        # keys and pixel indices take 16 bytes a pair)
+        lib, (zl, il) = merge_library(x, rows, regions)
+        if not (common.bits_equal(zl, zw.expand_as(zl).contiguous())
+                and common.bits_equal(il, iw.expand_as(il).contiguous())):
+            raise RuntimeError(f"P3 scatter_reduce_ at {pat}: differs from "
+                               f"the plain version")
+        library_ms = common.cuda_ms(lib, 5) if on_card else None
+        del lib, zl, il
+        if on_card:
+            torch.cuda.empty_cache()
         # the plain version merges each region's pairs as the kernel does
         plain_ms = (common.cuda_ms(lambda: [merge_plain(x, rows)
                                             for _ in range(regions)], 1,
@@ -101,7 +143,7 @@ def run(device, small: bool = False) -> dict:
             # first read) and writes its z and id once
             row = {"pairs": pairs, "plain_ms": plain_ms,
                    "max_abs_err": float((z - zw).abs().max()),
-                   "library_ms": None,
+                   "library_ms": library_ms,
                    **common.bound(x.numel() * 4 + regions * pixels * 8,
                                   pairs * PAIR_OPS)}
             if on_card:

@@ -476,20 +476,21 @@ class Renderer:
         Precision.HIGHEST: bf16 gave NaN rays on hardware)."""
         cfg = self.config
         dev = self.device
-        x = (torch.arange(cfg.width, dtype=torch.float32, device=dev)
-             + 0.5) / cfg.width
+        x = math3d.div_rn(torch.arange(cfg.width, dtype=torch.float32,
+                                       device=dev) + 0.5, cfg.width)
         if band is None:
-            y = (torch.arange(cfg.height, dtype=torch.float32, device=dev)
-                 + 0.5) / cfg.height
+            y = math3d.div_rn(torch.arange(cfg.height, dtype=torch.float32,
+                                           device=dev) + 0.5, cfg.height)
         else:
             y0, band_h = band
-            y = (torch.arange(band_h, dtype=torch.float32, device=dev)
-                 + 0.5 + float(y0)) / cfg.height
+            y = math3d.div_rn(torch.arange(band_h, dtype=torch.float32,
+                                           device=dev) + 0.5 + float(y0),
+                              cfg.height)
         yy, xx = torch.meshgrid(1.0 - y * 2.0, x * 2.0 - 1.0, indexing="ij")
         one = torch.ones_like(xx)
         wpos = torch.stack([xx, yy, one, one], -1) @ vc["clip_to_world"]
         wpos = wpos[..., :3] / wpos[..., 3:4]
-        return math3d.normalize(wpos - vc["camera_pos"])
+        return math3d.normalize_rn(wpos - vc["camera_pos"])
 
     # -- frame -------------------------------------------------------------
 
@@ -758,7 +759,7 @@ class Renderer:
             sel_eye = (torch.floor(sel_eye / q) + 0.5) * q
         sel_ranges = ts.lod_ranges(dev)
         if cfg.shadow_select == "light":
-            sel_eye = (-math3d.normalize(params.light_direction)
+            sel_eye = (-math3d.normalize_rn(params.light_direction)
                        * float(ts.world_size))
         if cfg.shadow_lod_bias:
             sel_ranges = sel_ranges * (0.5 ** cfg.shadow_lod_bias)
@@ -897,8 +898,9 @@ class Renderer:
         cell = None
         if (cfg.shadow_select == "main" and cfg.shadow_eye_quant > 0.0
                 and camera_pos is not None):
-            cell = tuple(torch.floor(camera_pos.to(torch.float32)
-                                     / cfg.shadow_eye_quant).long().tolist())
+            cell = tuple(torch.floor(math3d.div_rn(
+                camera_pos.to(torch.float32), cfg.shadow_eye_quant))
+                .long().tolist())
         key = (params.light_direction.detach().cpu().numpy().tobytes(),
                params.max_height.detach().cpu().numpy().tobytes(),
                None if self.scene_transforms is None

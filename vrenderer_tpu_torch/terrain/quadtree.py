@@ -53,6 +53,13 @@ def select_nodes(settings: TerrainSettings, camera_pos: torch.Tensor,
            if surface_location is None else surface_location)
     cam = camera_pos
     r2 = lod_ranges * lod_ranges          # QuadTree.cpp:82 passes range^2
+    # the camera's (x, z) cell at every level at once: x / (W / n) is
+    # divided as (x * n) / W, the same correctly rounded quotient (n = 2^d),
+    # by a divisor on the device
+    n_all = torch.bitwise_left_shift(1, torch.arange(L + 1, device=dev))
+    cam_cells = torch.floor(math3d.div_rn(
+        (cam[0::2] - loc[0::2] + W * 0.5) * n_all[:, None].to(torch.float32),
+        W)).to(torch.int32)
 
     ii = torch.arange(w, dtype=torch.int32, device=dev)
     cz, cx = torch.meshgrid(ii, ii, indexing="ij")
@@ -65,8 +72,7 @@ def select_nodes(settings: TerrainSettings, camera_pos: torch.Tensor,
         cell = W / n
         half = cell * 0.5
 
-        cam_cell_x = torch.floor((cam[0] - loc[0] + W * 0.5) / cell).to(torch.int32)
-        cam_cell_z = torch.floor((cam[2] - loc[2] + W * 0.5) / cell).to(torch.int32)
+        cam_cell_x, cam_cell_z = cam_cells[d]
         ox = torch.clamp(cam_cell_x - w // 2, 0, max(0, n - w))
         oz = torch.clamp(cam_cell_z - w // 2, 0, max(0, n - w))
 

@@ -45,6 +45,15 @@ def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-20) -> torch.Tenso
     return v / torch.sqrt(torch.sum(v * v, dim=dim, keepdim=True) + eps)
 
 
+def normalize_rn(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    """``normalize`` of (..., 3) vectors with the same bits on every
+    device: the squares summed x, y, z in order, as the CPU's sum adds
+    them (the card's reduction adds in another order), and a correctly
+    rounded square root (``sqrt_rn``)."""
+    sq = v * v
+    return v / sqrt_rn((sq[..., 0:1] + sq[..., 1:2]) + sq[..., 2:3] + eps)
+
+
 def dot(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.sum(a * b, dim=dim)
 
@@ -241,9 +250,26 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (bits + step).view(torch.float64).float()
 
 
+def div_rn(x: torch.Tensor, s) -> torch.Tensor:
+    """x / s rounded correctly, with the same bits on every device. The
+    card's true division by a host scalar (a Python number or a CPU 0-dim
+    tensor) multiplies by its reciprocal rounded to float32, which may be
+    off by one ulp; by a tensor on the card it divides, as the CPU always
+    does. A number ``s`` becomes a 0-dim tensor of ``x``'s dtype on
+    ``x``'s device (a fill, no host sync); a tensor ``s`` must already lie
+    there."""
+    if not isinstance(s, torch.Tensor):
+        s = torch.full((), s, dtype=x.dtype, device=x.device)
+    elif s.device != x.device:
+        raise ValueError(f"div_rn: divisor on {s.device}, dividend on "
+                         f"{x.device}")
+    return x / s
+
+
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """float32 square root rounded correctly, with the same bits on every
-    device: PyTorch's float32 sqrt on the card is not always the correctly
-    rounded one, its float64 sqrt is, and rounding that to float32 rounds
-    as the exact root would (53 >= 2 * 24 + 2 bits)."""
+    device: PyTorch's float32 sqrt on the CPU is an ulp off the correctly
+    rounded root for about 0.6% of inputs (the card's is correctly
+    rounded); its float64 sqrt is correctly rounded, and rounding that to
+    float32 rounds as the exact root would (53 >= 2 * 24 + 2 bits)."""
     return torch.sqrt(x.double()).float()
