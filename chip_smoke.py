@@ -9,20 +9,31 @@ Phases, each printing one line and raising on failure:
    CUDA versions; TF32 is switched off for matmuls and cuDNN, since the JAX
    package runs its matrix products in full float32 (Precision.HIGHEST);
 2. build: nvcc compiles ``vrenderer_tpu_torch/csrc`` (seconds printed,
-   ptxas' registers and spills), and the shared-memory atomics each region
-   kernel compiled to (cuobjdump's SASS: native ``ATOMS.MIN`` or a
-   compare-and-swap loop);
+   ptxas' registers and spills), and the shared- and global-memory atomics
+   each kernel of the region raster compiled to (cuobjdump's SASS: its
+   binning passes and the raster kernel of B1, B3a and B2; native
+   ``ATOMS.MIN`` or a compare-and-swap loop in shared memory, ``ATOMG``
+   (with a return value) or ``REDG`` (without) in global memory);
 3. kernel vs plain: the CUDA rasterizer B1 against its plain PyTorch
    version on the card at the 1080p horizon path's inputs (flythrough
    cameras 0 and 13, 13 being the heavy grazing view): ids and z equal,
-   attrs within 1e-5, both timed with CUDA events, beside the bound (the
-   least time the card could take for the input's bytes and operations),
-   the (triangle, pixel) pairs covered, evaluated by the kernel's block
-   test (``raster_cuda.block_pair_rects``, its PyTorch mirror) and in the
-   triangles' bboxes, and the kernel's time in each layout of LAYOUTS
-   (region side, blocks a cluster; equal output checked too); then B1 under
-   reverse-z and in wireframe, and kernel B3a under reverse-z, against
-   their plain versions at the same inputs;
+   attrs within 1e-5, the call made under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation),
+   both timed with CUDA events, beside the bound (the least time the card
+   could take for the input's bytes and operations), the (triangle, pixel)
+   pairs covered, evaluated by the kernel's block test
+   (``raster_cuda.block_pair_rects``, its PyTorch mirror) and in the
+   triangles' bboxes; the card's bins read back (``device_bins``), each
+   region's evaluated pairs equal to the mirror's, with the busiest
+   region's pairs, the blocks its work was split across and the binning
+   launches' time and share of the call, and each launch's device time
+   in a ``torch.profiler`` trace of 10 calls; the kernel's time at each
+   region side of LAYOUTS (equal output checked too); B1's output gather
+   alone
+   (``winner_rows``) against its plain version and timed beside
+   ``F.embedding`` over the same winners; then B1 under reverse-z and in
+   wireframe, and kernel B3a under reverse-z, against their plain versions
+   at the same inputs;
 4. two-phase kernels: B3a (z + id) against its plain version and B1's z
    and id, the winner filter kernel's work list and live (item, cell)
    pairs against its plain version, B3b (the winners' attrs) against its
@@ -41,8 +52,9 @@ Phases, each printing one line and raising on failure:
    reverse-z and in wireframe, finite, covered in (0, 1), without overflow;
 8. depth kernel vs plain: kernel B2 against its plain version and against
    kernel B1's z at the map cell's light-pass inputs (2048x2048, cameras 0
-   and 13): z bitwise equal to both, both timed with CUDA events, with the
-   pair counts and layouts of phase 3; then
+   and 13): z bitwise equal to both, no host synchronisation, both timed
+   with CUDA events, with the pair counts, bins and layouts of phase 3;
+   then
    kernel B1 against its plain version at the map path's main-raster
    inputs (768 + 1 instance slots in the light selection's order, the
    membership mask leaving shared slots invalid), as in phase 3;
@@ -54,7 +66,10 @@ Phases, each printing one line and raising on failure:
     pass from the main eye at 2048x2048, geometry shared with the main
     pass), all 64 cameras and a warm-up frame, every frame finite, covered
     in (0, 1) and without overflow (bits 1, 2 and 4); CUDA-event frame
-    times;
+    times; then the raster wrappers' host cost (``host_cost``: the host
+    ms a call of B1, B3a and B2 takes to enqueue its launches at map
+    camera 13, 50 calls without a synchronisation) and the peak device
+    memory of one map and one horizon frame;
 11. cached map variant (bench.py --mode mapcache: light-eye selection and
     the cached prepass): 8 cameras bit-identical to inline frames, one
     light raster for the cached loop, ``render_shadow_depth`` equal to the
@@ -168,7 +183,12 @@ Phases, each printing one line and raising on failure:
 
 Each path's kernel launches are counted from 0 just before it runs. Then
 one JSON line with each kernel's launches (on its path: B1 and B2 on the
-map path, B3a and B3b on the two-phase path; B1 and B2 also carry the
+map path, B3a and B3b on the two-phase path; B1, B2 and B3a carry each
+input's busiest region's pairs (``busiest_region_pairs``), the blocks its
+work was split across (``busiest_region_blocks``), the binning launches'
+time and share (``bin_ms``, ``bin_share``) and the scratch's bytes, B1 its
+output gather's times beside ``F.embedding``'s (``gather_*``); B1 and B2
+also carry the
 editor path's launches and numbers under ``editor_launches`` and
 ``editor``, and the workload modes' launches and their kernel checks under
 ``workloads_launches`` and ``workloads``, and each kernel the sharded
@@ -178,14 +198,21 @@ path's launches and its band numbers under ``sharded_launches`` and
 bound at camera 13, with each camera's under ``cameras`` (B1's at the
 map path's inputs, B3a's and B3b's at the horizon path's), and for B1, B2
 and B3a the pairs their block test evaluates (``evaluated_pairs``) beside
-the covered and bbox pairs, for B1 and B2 the time of each layout
-(``layout_ms``), and beside B3b the filter kernel's launches, time, plain
+the covered and bbox pairs, for B1 and B2 the time at each region side
+(``layout_ms``), for B1, B2 and B3a the wrapper's host ms a call
+(``host_ms``), and beside B3b the filter kernel's launches, time, plain
 time and bound (``filter_*``); the bound's operations count the
 (triangle, pixel) pairs the triangles cover; then
 the nvidia-smi line, and as the last line ``{"ok": true, "device":
 {...}}``. Without a CUDA device it raises and prints no result. Kernel
 times queue their launches behind a device sleep, so they are the
 device's and not the host's launch rate (``cuda_ms``).
+
+``python3 chip_smoke.py --ab`` runs only ``host_cost`` (with the horizon
+and map flythroughs' CUDA-event frame times and the raster kernels'
+device times) and prints it as one JSON line. It uses nothing but the wrappers' public calls, so a copy of
+this file placed at the root of another checkout of the port measures
+that checkout the same way (an A/B of two trees on one card).
 """
 
 from __future__ import annotations
@@ -215,10 +242,10 @@ MAX_ACTIVE, MAX_WORK = 512, 2048    # bench.py's horizon-mode budgets
 MAP_MAX_ACTIVE = 768                # bench.py's map-mode render budget
 SHADOW_RES = 2048                   # bench.py's light-map resolution
 KERNEL_CAMERAS = (0, 13)
-# (region side, blocks a cluster) of the region kernels timed in phases 3
-# and 8
-LAYOUTS = ((64, 1), (64, 2), (64, 4), (64, 8), (64, 16), (128, 1),
-           (128, 4))
+# region sides of the region kernels timed in phases 3 and 8: the default
+# and the whole supertile
+LAYOUTS = (64, 128)
+HOST_REPS = 50                      # wrapper calls enqueued per host timing
 JSON_CAMERA = 13                    # the heavy grazing view
 CACHED_CAMERAS = 8
 APP_FRAMES = 64                     # the App's adapting and fixed runs
@@ -462,61 +489,147 @@ def raster_work(vis, work, width: int, height: int, tile: int):
     of the visibility rows of its instances, {covered_pairs: (triangle,
     pixel) pairs the triangles cover, evaluated_pairs: pairs the kernels'
     block test leaves to the exact test, bbox_pairs: pairs in the
-    triangles' bboxes}). A covered pair needs its 3 edge planes and its
-    depth plane; the pairs that the kernel evaluates and rejects are its
-    design's cost, not the function's, so the bound counts covered pairs
-    only."""
+    triangles' bboxes}, the evaluated pairs of each 64-px region (the
+    block test's mirror, by region)). A covered pair needs its 3 edge
+    planes and its depth plane; the pairs that the kernel evaluates and
+    rejects are its design's cost, not the function's, so the bound counts
+    covered pairs only."""
     import torch
 
     from vrenderer_tpu_torch.ops import raster_cuda
 
     n_inst = int(torch.unique(work.items[work.items[:, 0] >= 0, 0]).numel())
+    rects = raster_cuda.block_pair_rects(vis, work, width, height, tile, 64)
     pairs = {
         "covered_pairs": sum(int(pix.numel()) for pix, _, _ in
                              raster_cuda._covered_pairs(
                                  vis, work, width, height, tile, 1 << 21)),
-        "evaluated_pairs": int(raster_cuda.block_pair_rects(
-            vis, work, width, height, tile).cnt.sum()),
+        "evaluated_pairs": int(rects.cnt.sum()),
         "bbox_pairs": int(raster_cuda.pair_rects(vis, work, width, height,
                                                  tile).cnt.sum()),
     }
-    # the most evaluated pairs one 64-px region holds: what its cluster
-    # of blocks alone must evaluate
-    rects = raster_cuda.block_pair_rects(vis, work, width, height, tile, 64)
+    n_regions = -(-width // 64) * -(-height // 64)
     region = rects.y0 // 64 * -(-width // 64) + rects.x0 // 64
-    pairs["busiest_region_pairs"] = int(torch.bincount(
-        region, weights=rects.cnt.double()).max()) if region.numel() else 0
-    return work.items.numel() * 4 + n_inst * vis.shape[1] * VIS_BYTES, pairs
+    per_region = torch.zeros(n_regions, dtype=torch.long,
+                             device=vis.device).index_add_(0, region,
+                                                           rects.cnt)
+    return (work.items.numel() * 4 + n_inst * vis.shape[1] * VIS_BYTES,
+            pairs, per_region)
+
+
+def bin_numbers(label: str, vis, work, width: int, height: int, tile: int,
+                key_bytes: int, per_region, call_ms: float) -> dict:
+    """The card's bins of one call at the default layout (``device_bins``),
+    held to the mirror: each region's evaluated pairs equal to
+    ``per_region`` (``raster_work``'s). Returns the busiest region's pairs,
+    the blocks its work was split across (its chunks), the regions split
+    over several chunks, the binning launches' time and
+    their share of the call's ``call_ms``, and the scratch's bytes."""
+    import torch
+
+    from vrenderer_tpu_torch.ops import raster_cuda
+
+    args = (vis, work, width, height, tile, key_bytes)
+    bins = raster_cuda.device_bins(*args)
+    if not torch.equal(bins.cost, per_region):
+        n = int((bins.cost != per_region).sum())
+        raise RuntimeError(f"{label}: the card's bins differ from the mirror "
+                           f"in {n} regions")
+    busiest = int(torch.argmax(bins.cost))
+    bin_ms = cuda_ms(lambda: raster_cuda.device_bins(*args), 20)
+    return {"busiest_region_pairs": int(bins.cost[busiest]),
+            "busiest_region_blocks": int(bins.chunks[busiest]),
+            "regions_split": int((bins.chunks > 1).sum()),
+            "entries": int(bins.entries.sum()),
+            "large_entries": int(bins.n_large),
+            "bin_ms": bin_ms, "bin_share": bin_ms / call_ms,
+            "scratch_bytes": bins.scratch_bytes}
 
 
 def pairs_text(pairs: dict) -> str:
+    from vrenderer_tpu_torch.ops.raster_cuda import SMALL_PX
+
     return (f"(triangle, pixel) pairs covered {pairs['covered_pairs']}, "
             f"evaluated {pairs['evaluated_pairs']} after the block test "
-            f"({pairs['busiest_region_pairs']} in the busiest 64-px region), "
-            f"{pairs['bbox_pairs']} in bboxes")
+            f"({pairs['busiest_region_pairs']} in the busiest 64-px region, "
+            f"split across {pairs['busiest_region_blocks']} blocks; "
+            f"{pairs['regions_split']} regions split), "
+            f"{pairs['bbox_pairs']} in bboxes; entries {pairs['entries']} "
+            f"({pairs['large_entries']} above {SMALL_PX} px); binning "
+            f"{pairs['bin_ms']:.4f} ms, {pairs['bin_share']:.3f} of the "
+            f"call; scratch {pairs['scratch_bytes']} B")
 
 
 def layout_times(fn, check) -> dict:
-    """CUDA-event ms of ``fn(region=side, cluster=n)`` for each layout of
-    LAYOUTS, after ``check`` holds each layout's output to the reference."""
+    """CUDA-event ms of ``fn(region=side)`` for each side of LAYOUTS, after
+    ``check`` holds each side's output to the reference."""
     out = {}
-    for side, n in LAYOUTS:
-        key = f"{side}px x{n}"
-        check(fn(region=side, cluster=n), key)
-        out[key] = cuda_ms(lambda: fn(region=side, cluster=n), 20)
+    for side in LAYOUTS:
+        key = f"{side}px"
+        check(fn(region=side), key)
+        out[key] = cuda_ms(lambda: fn(region=side), 20)
     return out
 
 
+def launch_breakdown(fn, reps: int = 10) -> dict:
+    """Device ms a call of ``fn`` spends in each of its launches (the
+    binning passes, the raster kernel, the finish kernel), from a
+    ``torch.profiler`` trace of ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0) or 0
+        name = re.search(r"(bins_\w+|raster_kernel|finish_kernel|Memset)",
+                         e.key)
+        if t > 0 and name:
+            key = name.group(1)
+            out[key] = out.get(key, 0.0) + t / reps / 1000.0
+    return out
+
+
+class no_host_sync:
+    """Raises on any host synchronisation by PyTorch inside the block
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+
+    def __enter__(self):
+        import torch
+
+        self.mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode(self.mode)
+        return False
+
+
 def sass_atomics() -> str:
-    """The shared-memory atomic instructions each region kernel compiled
-    to, from cuobjdump's SASS of the built library."""
+    """The shared- and global-memory atomic instructions each kernel of the
+    region raster (its binning passes and its raster kernel) compiled to,
+    from cuobjdump's SASS of the built library."""
     from vrenderer_tpu_torch.probes import common
 
+    names = {"raster_kernelILi0E": "B1 raster", "raster_kernelILi1E":
+             "B3a raster", "raster_kernelILi2E": "B2 raster",
+             "finish_kernelILi0E": "B1 finish", "finish_kernelILi1E":
+             "B3a finish", "bins_count": "bins count", "bins_big":
+             "bins big", "bins_scan": "bins scan", "bins_scatter":
+             "bins scatter"}
     named = {}
-    for fn, ops in common.sass_ops(r"region_kernel",
-                                   r"ATOMS\.[A-Z0-9.]+").items():
-        i = int(re.search(r"region_kernelILi(\d)E", fn).group(1))
-        named[f"region_kernel<{('B1', 'B3a', 'B2')[i]}>"] = ops
+    for fn, ops in common.sass_ops(
+            r"raster_kernel|finish_kernel|bins_",
+            r"(?:ATOMS|ATOMG|REDG|ATOM|RED)\.[A-Z0-9.]+").items():
+        key = next((v for k, v in names.items() if k in fn), fn)
+        named[key] = ops
     return "; ".join(f"{k}: " + ", ".join(f"{op} x{n}" for op, n in v.items())
                      for k, v in sorted(named.items()))
 
@@ -562,9 +675,12 @@ def bench_renderer(device, max_active=MAX_ACTIVE, **cfg_kw):
 def b1_vs_plain(label: str, packed, work, width: int, height: int,
                 tile: int, layouts: bool = True) -> dict:
     """Kernel B1 against its plain version at (``packed``, ``work``): ids
-    and z equal, attrs within ATTR_TOL, the launch counted; CUDA-event
-    times of both (and of each layout of LAYOUTS with ``layouts``), the
-    pairs and the bound. Returns the JSON numbers."""
+    and z equal, attrs within ATTR_TOL, the launch counted, no host
+    synchronisation in the call; the card's bins against the mirror;
+    CUDA-event times of both (and of each layout of LAYOUTS and of B1's
+    output gather beside ``F.embedding`` with ``layouts``), the pairs, the
+    busiest region's split, the binning's share and the bound. Returns the
+    JSON numbers."""
     import torch
 
     from vrenderer_tpu_torch.ops import raster_cuda
@@ -572,7 +688,8 @@ def b1_vs_plain(label: str, packed, work, width: int, height: int,
     args = (width, height, tile)
     ref = raster_cuda.rasterize_plain(packed, work, *args)
     before = raster_cuda.rasterize.launches
-    out = raster_cuda.rasterize(packed, work, *args)
+    with no_host_sync():
+        out = raster_cuda.rasterize(packed, work, *args)
     torch.cuda.synchronize()
     if raster_cuda.rasterize.launches != before + 1:
         raise RuntimeError("the raster wrapper did not count its launch")
@@ -595,10 +712,19 @@ def b1_vs_plain(label: str, packed, work, width: int, height: int,
     p_ms = cuda_ms(lambda: raster_cuda.rasterize_plain(packed, work, *args),
                    3, queued=False)
     n_px = int((out[1] >= 0).sum())
-    in_bytes, pairs = raster_work(packed.vis, work, *args)
+    in_bytes, pairs, per_region = raster_work(packed.vis, work, *args)
+    pairs.update(bin_numbers(label, packed.vis, work, *args, 8, per_region,
+                             k_ms))
     b = bound(in_bytes + winner_bytes(out[1]) + width * height * 40,
               pairs["covered_pairs"] * PAIR_OPS + n_px * RESOLVE_OPS)
+    gather = gather_vs_library(label, packed.coef, out[1]) if layouts else {}
+    if layouts:
+        pairs["launch_ms"] = launch_breakdown(
+            lambda: raster_cuda.rasterize(packed, work, *args))
+        log(f"B1 launches {label} (ms a call): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in pairs["launch_ms"].items()))
     log(f"kernel {label}: ids/z equal, attrs max abs err {err:.3g}, "
+        f"no host sync, bins equal to the mirror, "
         f"instance slots {packed.vis.shape[0]} of {packed.vis.shape[1]} "
         f"triangles, work items {int(work.num_items)}, covered "
         f"{n_px / (width * height):.4f}, {pairs_text(pairs)}; kernel "
@@ -607,10 +733,42 @@ def b1_vs_plain(label: str, packed, work, width: int, height: int,
                                     lay.items()) + ")" if lay else "")
         + f", plain {p_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
         f"({b['bound_by']})")
-    out = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b, **pairs}
+    out = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b, **pairs,
+           **gather}
     if lay:
         out["layout_ms"] = lay
     return out
+
+
+def gather_vs_library(label: str, coef, ids) -> dict:
+    """B1's output gather alone (``winner_rows``, the code of B1's output
+    pass) over B1's winners ``ids``: equal to its plain version bit for
+    bit; CUDA-event times of it, of its plain version and of
+    ``F.embedding`` over the same rows (the library yardstick, used nowhere
+    in the port), and its bound (the ids read, the distinct winners' rows
+    read, the rows written)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vrenderer_tpu_torch.ops import raster_cuda
+
+    flat = ids.reshape(-1).contiguous()
+    rows = raster_cuda.winner_rows(coef, flat)
+    if not torch.equal(rows, raster_cuda.winner_rows_plain(coef, flat)):
+        raise RuntimeError(f"{label}: B1's gather differs from plain")
+    table = coef.reshape(-1, raster_cuda.NUM_COEF)
+    idx = flat.clamp(min=0).long()
+    t = {"gather_ms": cuda_ms(lambda: raster_cuda.winner_rows(coef, flat),
+                              20),
+         "gather_plain_ms": cuda_ms(
+             lambda: raster_cuda.winner_rows_plain(coef, flat), 20),
+         "gather_library_ms": cuda_ms(lambda: F.embedding(idx, table), 20)}
+    b = bound(flat.numel() * (4 + COEF_BYTES) + winner_bytes(ids), 0)
+    log(f"B1 output gather {label}: {flat.numel()} pixels equal to plain; "
+        f"gather {t['gather_ms']:.4f} ms, plain {t['gather_plain_ms']:.4f} "
+        f"ms, F.embedding {t['gather_library_ms']:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return {**t, "gather_bound_ms": b["bound_ms"]}
 
 
 def phase_kernel(name, r, params, prepass, cams) -> dict:
@@ -859,7 +1017,9 @@ def two_phase_vs_plain(label: str, packed, work, W: int, H: int, tile: int,
     used = int((work.items[:, 0] >= 0).sum())
     n_live = int(live.sum())
     n_px = int((ids >= 0).sum())
-    in_bytes, pairs = raster_work(packed.vis, work, W, H, tile)
+    in_bytes, pairs, per_region = raster_work(packed.vis, work, W, H, tile)
+    pairs.update(bin_numbers(label, packed.vis, work, W, H, tile, 8,
+                             per_region, t["b3a"]))
     b_zid = bound(in_bytes + W * H * 8, pairs["covered_pairs"] * PAIR_OPS)
     b_res = bound(W * H * (4 + 32) + winner_bytes(ids) + live.numel()
                   + work2.items.numel() * 4, n_px * RESOLVE_OPS)
@@ -962,7 +1122,8 @@ def b2_vs_plain(label: str, vis, work, res: int, tile: int,
     args = (res, res, tile)
     ref = raster_cuda.rasterize_depth_plain(vis, work, *args)
     before = raster_cuda.rasterize_depth.launches
-    z = raster_cuda.rasterize_depth(vis, work, *args)
+    with no_host_sync():
+        z = raster_cuda.rasterize_depth(vis, work, *args)
     torch.cuda.synchronize()
     if raster_cuda.rasterize_depth.launches != before + 1:
         raise RuntimeError("the depth wrapper did not count its launch")
@@ -989,9 +1150,16 @@ def b2_vs_plain(label: str, vis, work, res: int, tile: int,
     p_ms = cuda_ms(lambda: raster_cuda.rasterize_depth_plain(vis, work, *args),
                    3, queued=False)
     covered = float((z < 2.0).float().mean())
-    in_bytes, pairs = raster_work(vis, work, *args)
+    in_bytes, pairs, per_region = raster_work(vis, work, *args)
+    pairs.update(bin_numbers(label, vis, work, *args, 4, per_region, k_ms))
+    if layouts:
+        pairs["launch_ms"] = launch_breakdown(
+            lambda: raster_cuda.rasterize_depth(vis, work, *args))
+        log(f"B2 launches {label} (ms a call): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in pairs["launch_ms"].items()))
     b = bound(in_bytes + res * res * 4, pairs["covered_pairs"] * PAIR_OPS)
-    log(f"depth kernel {label}: z equal to plain and to B1, work items "
+    log(f"depth kernel {label}: z equal to plain and to B1, no host sync, "
+        f"bins equal to the mirror, work items "
         f"{int(work.num_items)}, covered {covered:.4f}, {pairs_text(pairs)}; "
         f"kernel {k_ms:.4f} ms"
         + (" (layouts " + ", ".join(f"{k} {v:.4f} ms" for k, v in
@@ -1012,6 +1180,117 @@ def phase_depth_kernel(r, params, cams) -> dict:
         f"camera {i} (max_work {r.max_work})",
         *r.light_raster_inputs(cams.frame(i), params), res,
         r.config.raster.tile_w) for i in KERNEL_CAMERAS])
+
+
+def host_ms(fn, reps: int = HOST_REPS) -> float:
+    """Host ms a call of ``fn`` takes to return, over ``reps`` calls
+    enqueued without a synchronisation between them (after a warm-up
+    call): the wrapper's Python, allocations and launch calls, not the
+    device's time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
+
+
+def frame_peak(r, params, cam, prepass=None) -> dict:
+    """Peak device memory of one frame (after a warm-up frame and an
+    emptied cache): the bytes the frame's tensors took at most and the
+    bytes the caching allocator held at most."""
+    import torch
+
+    r.render(cam, params, shadow_prepass=prepass)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r.render(cam, params, shadow_prepass=prepass)
+    torch.cuda.synchronize()
+    return {"peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+
+
+def host_cost(device, card: str, ab: bool = False) -> dict:
+    """The raster wrappers' host cost at the map cell's camera JSON_CAMERA
+    (``host_ms``: B1 and B3a at the main raster's inputs, B2 at the light
+    pass's, and B2 then B1 as a map frame calls them), and one horizon and
+    one map frame's peak device memory (``frame_peak``). With ``ab``, also
+    the CUDA-event times of both 64-camera flythroughs and the kernels'
+    device times (``cuda_ms``) at the inputs of phases 3, 4, 8 and 14: B2
+    and B1 at map cameras 0 and 13, B1 and B3a at horizon cameras 0 and 13
+    and at band 1 of 3 of camera 13. Uses only the wrappers' public calls,
+    so it measures any tree of the port."""
+    import torch
+
+    from vrenderer_tpu_torch.ops import raster_cuda as rc
+
+    out, kern = {}, {}
+    rm, params, cams = bench_renderer(device, max_active=MAP_MAX_ACTIVE,
+                                      shadow_mode="map",
+                                      shadow_resolution=SHADOW_RES)
+    cam = cams.frame(JSON_CAMERA)
+    packed, work = rm.raster_inputs(cam, params)
+    vis, lwork = rm.light_raster_inputs(cam, params)
+    res, (w, h), tile = SHADOW_RES, (WIDTH, HEIGHT), rm.config.raster.tile_w
+    out["b1_host_ms"] = host_ms(lambda: rc.rasterize(packed, work, w, h))
+    out["b3a_host_ms"] = host_ms(lambda: rc.rasterize_zid(packed, work, w,
+                                                          h))
+    out["b2_host_ms"] = host_ms(lambda: rc.rasterize_depth(vis, lwork, res,
+                                                           res))
+    out["b2_b1_host_ms"] = host_ms(lambda: (
+        rc.rasterize_depth(vis, lwork, res, res),
+        rc.rasterize(packed, work, w, h)))
+    del packed, work, vis, lwork
+    if ab:
+        for i in KERNEL_CAMERAS:
+            v, lw = rm.light_raster_inputs(cams.frame(i), params)
+            kern[f"b2_map_{i}"] = cuda_ms(
+                lambda: rc.rasterize_depth(v, lw, res, res), 20)
+            p, wk = rm.raster_inputs(cams.frame(i), params)
+            kern[f"b1_map_{i}"] = cuda_ms(
+                lambda: rc.rasterize(p, wk, w, h), 20)
+        del v, lw, p, wk
+    out["map_frame"] = frame_peak(rm, params, cam)
+    if ab:
+        out["map_frame"]["ms"] = phase_flythrough("map", rm, params, cams)[0]
+    del rm
+    torch.cuda.empty_cache()
+    r, params, cams = bench_renderer(device)
+    prepass = r.cached_horizon_prepass(params)
+    if ab:
+        band_h = h // 3
+        for key, i, band, bh in ((0, 0, None, h), (13, 13, None, h),
+                                 ("band", JSON_CAMERA, (band_h, band_h),
+                                  band_h)):
+            p, wk = r.raster_inputs(cams.frame(i), params,
+                                    None if band else prepass, band=band)
+            kern[f"b1_horizon_{key}"] = cuda_ms(
+                lambda: rc.rasterize(p, wk, w, bh), 20)
+            kern[f"b3a_horizon_{key}"] = cuda_ms(
+                lambda: rc.rasterize_zid(p, wk, w, bh), 20)
+        del p, wk
+        out["kernels_ms"] = kern
+    out["horizon_frame"] = frame_peak(r, params, cams.frame(JSON_CAMERA),
+                                      prepass)
+    if ab:
+        out["horizon_frame"]["ms"] = phase_flythrough(
+            "horizon", r, params, cams, prepass)[0]
+    del r
+    torch.cuda.empty_cache()
+    for k in ("map_frame", "horizon_frame"):
+        if "ms" in out[k]:
+            ms = out[k].pop("ms")
+            out[k].update(mean_ms=float(np.mean(ms)),
+                          p50_ms=float(np.median(ms)),
+                          max_ms=float(np.max(ms)))
+    log(f"host cost ({card}, map cell camera {JSON_CAMERA}, {HOST_REPS} "
+        f"calls enqueued): " + json.dumps(out))
+    return out
 
 
 def map_golden_renderer(device):
@@ -2661,6 +2940,9 @@ def phase_probes(device, card: str) -> list:
 def main() -> int:
     import torch
 
+    host_only = sys.argv[1:] == ["--ab"]
+    if sys.argv[1:] and not host_only:
+        raise SystemExit("usage: python3 chip_smoke.py [--ab]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke run "
                          "needs an NVIDIA GPU")
@@ -2686,7 +2968,11 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     log(f"build: {lib.relative_to(REPO)} in "
         f"{time.perf_counter() - t0:.1f} s; ptxas: {'; '.join(ptxas)}")
-    log(f"shared-memory atomics (SASS): {sass_atomics()}")
+    if host_only:
+        print(json.dumps({"host_cost": host_cost(device, card, ab=True),
+                          "tree": str(REPO), "card": card}), flush=True)
+        return 0
+    log(f"atomics (SASS): {sass_atomics()}")
 
     r, params, cams = bench_renderer(device)
     prepass = r.cached_horizon_prepass(params)
@@ -2725,6 +3011,7 @@ def main() -> int:
         f"{np.median(map_ms):.3f} ms, max {np.max(map_ms):.3f} ms over 64 "
         f"frames (CUDA events, 1920x1152, light map {SHADOW_RES}^2)")
     del rm
+    cost = host_cost(device, card)
     phase_map_cached(device, params, cams)
     ed_b1, ed_b2, ed_launches = phase_editor(device, card)
     sh_launches, sh = phase_sharded(device, card, params, cams)
@@ -2736,6 +3023,7 @@ def main() -> int:
         {"name": "raster", "route": "cuda", "source": src,
          "replaces": "vrenderer_tpu/ops/raster_pallas.py:598",
          "launches": map_launches["raster"], **kern, "library_ms": None,
+         "host_ms": cost["b1_host_ms"],
          "editor_launches": ed_launches["raster"], "editor": ed_b1,
          "sharded_launches": sh_launches["raster"], "sharded": sh["raster"],
          "sharded_map": sh["raster_map"],
@@ -2743,7 +3031,7 @@ def main() -> int:
         {"name": "raster_depth", "route": "cuda", "source": src,
          "replaces": "vrenderer_tpu/ops/raster_pallas.py:1121",
          "launches": map_launches["raster_depth"], **kern_d,
-         "library_ms": None,
+         "library_ms": None, "host_ms": cost["b2_host_ms"],
          "editor_launches": ed_launches["raster_depth"], "editor": ed_b2,
          "sharded_launches": sh_launches["raster_depth"],
          "sharded": sh["raster_depth"],
@@ -2752,7 +3040,8 @@ def main() -> int:
         {"name": "raster_zid", "route": "cuda", "source": src,
          "replaces": "vrenderer_tpu/ops/raster_pallas.py:1209",
          "launches": two_launches["raster_zid"], **kern_zid,
-         "library_ms": None, "sharded_launches": sh_launches["raster_zid"],
+         "library_ms": None, "host_ms": cost["b3a_host_ms"],
+         "sharded_launches": sh_launches["raster_zid"],
          "sharded": sh["raster_zid"]},
         {"name": "raster_resolve", "route": "cuda", "source": src,
          "replaces": "vrenderer_tpu/ops/raster_pallas.py:1384",

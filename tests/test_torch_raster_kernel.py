@@ -4,11 +4,12 @@ the inclusive bbox scissor, the wrappers' checks and launch counts, the
 depth-only raster's z equal to the full raster's with an F32_FAR (never
 NaN) background, reverse-z (farthest wins, ties to the lowest id, -F32_FAR
 background), the wireframe cover rule, and the two-phase raster equal to
-the single-phase one; adversarial inputs for the kernels' region merge and
-block test (near-plane-sized bboxes, edges through block-corner pixel
-centres, many instances in one supertile, instance-major work lists with
-unused slots, ragged frames, regions without items) against a per-pixel
-numpy reference; B3b and the winner filter on adversarial work lists and
+the single-phase one; adversarial inputs for the kernels' binning, chunked
+merge and block test (near-plane-sized bboxes, edges through block-corner
+pixel centres, many instances in one supertile, instance-major work lists
+with unused slots, ragged frames, regions without items, a hot spot of
+3000 sub-pixel triangles with tied depths) against a per-pixel numpy
+reference at both region sides; B3b and the winner filter on adversarial work lists and
 id images against a numpy reference of their contract; and on the card,
 the CUDA kernels B1, B2, B3a, B3b and the filter equal to their plain
 versions on whole frames' raster and light-view inputs.
@@ -520,6 +521,28 @@ def _adversarial(case):
         items = np.array([[i, st] for st in range(2) for i in range(2)],
                          np.int32)
         return planes, bbox, 2, items, w, h
+    if case == "hot_spot":
+        # 3000 sub-pixel triangles piled on a 6x6-px spot of supertile 0
+        # (each covers its pixel centre, some a neighbour too), their depths
+        # from four values (ties to the lowest id), in random order, over a
+        # floor on supertile 0
+        n = 3000
+        rng = np.random.default_rng(5)
+        cx = (rng.integers(40, 46, n) + 0.5).astype(np.float32)
+        cy = (rng.integers(20, 26, n) + 0.5).astype(np.float32)
+        reach = rng.choice(np.float32([0.2, 0.7, 1.2]), n)
+        planes = np.zeros((n + 1, 12), np.float32)
+        planes[:n, 0], planes[:n, 2] = 1, -(cx - np.float32(0.3))
+        planes[:n, 4], planes[:n, 5] = 1, -(cy - np.float32(0.3))
+        planes[:n, 6], planes[:n, 7] = -1, -1
+        planes[:n, 8] = cx + cy + reach
+        planes[:n, 11] = rng.choice(np.float32([0.25, 0.5, 0.5, 0.75]), n)
+        planes[n] = _full_frame_triangle(0.9)
+        bbox = np.concatenate([
+            np.stack([cx - 0.5, cy - 0.5, cx + reach + 0.3,
+                      cy + reach + 0.3], 1),
+            np.float32([[0, 0, 127, H - 1]])]).astype(np.float32)
+        return planes, bbox, 1, _supertile_major(1), W, H
     if case == "region_without_items":
         # triangles over the whole frame, items only for supertile 0:
         # supertile 1 stays background
@@ -532,7 +555,13 @@ def _adversarial(case):
 
 
 ADVERSARIAL = ("crossing", "block_edges", "many_instances", "instance_major",
-               "ragged", "region_without_items")
+               "ragged", "region_without_items", "hot_spot")
+# region sides of the region kernels: the default and the whole supertile.
+# At CHUNK pairs a chunk, the hot spot's 64-px region and the 128-px
+# regions of crossing, many_instances, instance_major, ragged and
+# region_without_items are split over several raster blocks, which merge
+# through the key image's global atomics.
+KERNEL_LAYOUTS = (raster_cuda.REGION, 128)
 
 
 def _supertile_major(n_inst, width=W, height=H):
@@ -602,16 +631,16 @@ def _per_pixel_reference(vis, items, width, height, reverse_z, wire_px=0.0,
 @pytest.mark.parametrize("case", ADVERSARIAL)
 def test_adversarial_inputs_match_per_pixel_reference(device, case):
     """B1 (filled, reverse-z, wireframe), B3a and B2 on inputs aimed at the
-    region merge and the block test equal a pair-by-pair reference, at
-    both region sizes of the kernels and with 1 to 16 blocks sharing a
-    region."""
+    binning, the chunked merge and the block test equal a pair-by-pair
+    reference, at both region sizes of the kernels, with regions of one
+    chunk and regions split over several."""
     packed, work, w, h = adversarial_inputs(case, device)
     vis = packed.vis.cpu().numpy()
     items = work.items.cpu().numpy()
     modes = ((False, 0.0), (True, 0.0), (False, 1.0))
     refs = {m: _per_pixel_reference(vis, items, w, h, *m) for m in modes}
-    for region, cluster in ((64, 1), (64, 2), (64, 16), (128, 8)):
-        kw = {"region": region, "cluster": cluster}
+    for region in KERNEL_LAYOUTS:
+        kw = {"region": region}
         for reverse_z, wire_px in modes:
             z_ref, id_ref = refs[reverse_z, wire_px]
             z, ids, attrs = (x.cpu().numpy() for x in raster_cuda.rasterize(
@@ -636,24 +665,30 @@ def test_adversarial_inputs_match_per_pixel_reference(device, case):
 
 def test_region_side_and_tiles_the_kernels_cannot_hold(device):
     """A region divides the supertile or is the whole supertile; a tile
-    whose region's keys would not fit in shared memory raises before any
-    launch, on every device."""
+    whose region's keys and stage buffers would not fit in shared memory,
+    or more than 16 regions a supertile raise before any launch, on every
+    device."""
     assert raster_cuda.region_side(128) == 64
     assert raster_cuda.region_side(128, 128) == 128
     assert raster_cuda.region_side(96) == 96
     assert raster_cuda.region_side(32) == 32
     assert raster_cuda.region_side(256) == 64
+    with pytest.raises(ValueError):
+        raster_cuda.region_side(512, 64)    # 64 regions a supertile
     packed = _pair([_full_frame_triangle(0.5)], device)
     work = raster_cuda.full_work_list(1, W, H, tile=200, device=device)
     before = raster_cuda.rasterize.launches
     for bad in ({"tile": 200}, {"tile": 128, "region": 0},
-                {"tile": 128, "cluster": 0}, {"tile": 128, "cluster": 17}):
+                {"tile": 128, "region": -64}):
         with pytest.raises(ValueError):
             raster_cuda.rasterize(packed, work, W, H, **bad)
         with pytest.raises(ValueError):
             raster_cuda.rasterize_zid(packed, work, W, H, **bad)
     with pytest.raises(ValueError):
         raster_cuda.rasterize_depth(packed.vis, work, W, H, tile=240)
+    with pytest.raises(ValueError):
+        raster_cuda.rasterize_depth(packed.vis, work, W, H, tile=128,
+                                    region=0)
     assert raster_cuda.rasterize.launches == before
     # B2's 4-byte keys fit a 200-px tile
     z = raster_cuda.rasterize_depth(packed.vis, work, W, H, tile=200)
@@ -822,3 +857,27 @@ def test_resolve_raises_above_the_instance_limit(device):
     with pytest.raises(ValueError):
         raster_cuda.rasterize_resolve(packed, work, live, ids, W, H)
     assert raster_cuda.rasterize_resolve.launches == before
+
+
+def test_winner_rows_gathers_each_pixels_coefficients(device):
+    """B1's output gather alone (``winner_rows``): row i is the winner's 27
+    coefficients, zeros on the background, for runs of equal winners,
+    scattered winners and a length that is no multiple of a warp; bad
+    inputs raise before any launch."""
+    rng = np.random.default_rng(9)
+    coef = torch.as_tensor(rng.normal(size=(5, 7, raster_cuda.NUM_COEF))
+                           .astype(np.float32), device=device)
+    ids = rng.integers(-1, 35, 1000).astype(np.int32)
+    ids[100:300] = 17
+    ids[500:540] = -1
+    tid = torch.as_tensor(ids, device=device)
+    rows = raster_cuda.winner_rows(coef, tid).cpu().numpy()
+    flat = coef.reshape(-1, raster_cuda.NUM_COEF).cpu().numpy()
+    want = np.where(ids[:, None] >= 0, flat[np.maximum(ids, 0)], 0.0)
+    assert np.array_equal(rows, want)
+    before = raster_cuda.winner_rows.launches
+    for bad in ((coef.double(), tid), (coef, tid.long()),
+                (coef[..., :26].contiguous(), tid)):
+        with pytest.raises(ValueError):
+            raster_cuda.winner_rows(*bad)
+    assert raster_cuda.winner_rows.launches == before

@@ -91,22 +91,32 @@ def load() -> ctypes.CDLL:
     if _loaded is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.vrt_raster.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, f,
-                                   p, p, p, p]
-        lib.vrt_raster_zid.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, p,
-                                       p]
+        ll = ctypes.c_longlong
+        lib.vrt_raster.argtypes = [p, p, p, i, i, i, i, i, i, i, i, f, p,
+                                   ll, p, p, p, p]
+        lib.vrt_raster_zid.argtypes = [p, p, i, i, i, i, i, i, i, i, p, ll,
+                                       p, p, p]
+        lib.vrt_raster_bins.argtypes = [p, p, i, i, i, i, i, i, i, i, p, ll,
+                                        p]
+        lib.vrt_raster_scratch.argtypes = [i, i, i, i, i, i, i, i,
+                                           ctypes.POINTER(ll)]
+        lib.vrt_raster_scratch.restype = ll
+        lib.vrt_raster_gather.argtypes = [p, p, i, p, p]
         lib.vrt_raster_resolve.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
                                            i, i, p, p, p]
         lib.vrt_filter_winners.argtypes = [p, i, p, i, i, i, i, i, i, i, p,
                                            p, p]
-        lib.vrt_raster_depth.argtypes = [p, p, i, i, i, i, i, i, i, i, p, p]
+        lib.vrt_raster_depth.argtypes = [p, p, i, i, i, i, i, i, i, p, ll,
+                                         p, p]
         lib.vrt_probe_sweep.argtypes = [p, p, p, i, i, i, i, f, f, p]
         lib.vrt_probe_eval.argtypes = [p, p, i, i, i, i, i, i, p, i, p, p, p,
                                        p]
         lib.vrt_probe_merge.argtypes = [p, i, i, i, i, i, p, p, p]
         lib.vrt_probe_window.argtypes = [p, i, i, p, i, i, i, i, i, p, p]
-        for fn in (lib.vrt_raster, lib.vrt_raster_zid, lib.vrt_raster_resolve,
-                   lib.vrt_filter_winners, lib.vrt_raster_depth,
+        for fn in (lib.vrt_raster, lib.vrt_raster_zid, lib.vrt_raster_bins,
+                   lib.vrt_raster_gather,
+                   lib.vrt_raster_resolve, lib.vrt_filter_winners,
+                   lib.vrt_raster_depth,
                    lib.vrt_probe_sweep, lib.vrt_probe_eval,
                    lib.vrt_probe_merge, lib.vrt_probe_window):
             fn.restype = i

@@ -12,12 +12,17 @@ edge.
 Each wrapper launches a hand-written kernel of ``csrc/raster.cu`` (built
 by ``_build``) for CUDA tensors, counting the launches on the wrapper, and
 runs its plain PyTorch version, the CPU path and the card's reference, for
-CPU tensors. B1, B2 and B3a share one design: a cluster of ``cluster``
-blocks merges one ``region`` x ``region`` pixel square of a supertile in
-shared memory and evaluates a triangle's pixels only in the 8x8 blocks
-that an exact-margin test cannot rule out; ``block_pair_rects`` mirrors
-that test in PyTorch and counts the (triangle, pixel) pairs the kernels
-evaluate:
+CPU tensors. B1, B2 and B3a share one design: a binning pass on the device
+lists each triangle in the ``region`` x ``region`` pixel squares of its
+work item's supertile that its bbox meets, with its cost (the pixels of
+its bbox there, or of the 8x8 blocks an exact-margin test keeps); the
+raster launch, a persistent grid of blocks, then takes each region's list
+in chunks of about ``CHUNK`` evaluated pairs, so a hot region gets as
+many blocks as its pairs need. ``region_bins`` mirrors the binning and
+``block_pair_rects`` the block test in PyTorch; ``device_bins`` reads the
+card's bins back and ``winner_rows`` runs B1's output gather alone, both
+for measuring. The layout keyword ``region`` shapes only the blocks, never
+the result:
 
 * ``rasterize``: kernel B1 (``vrt_raster``), replacing the Pallas kernel
   ``raster_pallas._raster_kernel`` (full variant, via
@@ -54,6 +59,7 @@ the TPU; the kernels here take the items in any order.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -65,16 +71,20 @@ NUM_ATTRS = 8
 NUM_COEF = 3 * (1 + NUM_ATTRS)    # [inv_w, attr0..7] x (a, b, c)
 VIS_STRIDE = 16                   # 3 edges x 3, z plane x 3, bbox x 4
 TILE = 128
-REGION = 64        # side of the pixel square one kernel cluster merges
-CLUSTER = 2        # blocks of a cluster sharing one region's work (B1, B3a)
-DEPTH_CLUSTER = 16  # the same for B2, whose light views pile up in one spot
+REGION = 64        # side of the pixel squares the kernels bin to
+CHUNK = 16384      # evaluated (triangle, pixel) pairs a raster block's
+                   # chunk aims at (kChunk of csrc/raster.cu)
 CELL = 8           # side of the kernels' block-test blocks
 SMALL_PX = CELL * CELL   # bbox-in-region pixels one thread walks unsplit
 _KEY_EMPTY = torch.iinfo(torch.int64).max
-# the kernels' shared memory: region^2 keys and two lists of 1024 ints, of
-# the 227 KB a block may hold on the H100 (less the static part)
-_SMEM_BYTES = 232448 - 64
-_LISTS_BYTES = 2 * 1024 * 4
+# the raster kernel's shared memory: region^2 keys (rounded to 16 bytes)
+# and two stage buffers of 256 rows of 64 bytes and their ids, of the 227 KB
+# a block may hold on the H100 (less the static part)
+_SMEM_BYTES = 232448 - 4096
+_STAGE_BYTES = 2 * 256 * (64 + 4)
+_MAX_SIDE = 256    # a region's pairs and cost share one 64-bit total
+_MAX_SUB = 16      # regions a supertile, (tile / region)^2
+_COST_BITS = 38    # a region's total: (entries << 38) | cost
 # B3b's per-cell instance bitmap: bench.py's envelope has 4096 terrain
 # slots, plus the scene's block slots
 MAX_RESOLVE_INSTANCES = 8192
@@ -172,23 +182,65 @@ def _tiles(width: int, height: int, tile: int):
     return tiles_x, tiles_x * -(-height // tile)
 
 
-def region_side(tile: int, region: int = REGION, key_bytes: int = 8,
-                cluster: int = CLUSTER) -> int:
-    """The side of the pixel squares the kernels merge for ``tile``:
+def region_side(tile: int, region: int = REGION, key_bytes: int = 8) -> int:
+    """The side of the pixel squares the kernels bin to for ``tile``:
     ``region`` where it divides the tile, else the whole tile. Raises for a
-    square whose keys (``key_bytes`` each) do not fit in a block's shared
-    memory, and for a cluster of other than 1-16 blocks (above 8 a
-    non-portable size, which the H100 allows)."""
+    square whose keys (``key_bytes`` each) and stage buffers do not fit in a
+    block's shared memory, and for more than 16 squares a supertile or a
+    side above 256."""
     if tile <= 0 or region <= 0:
         raise ValueError(f"tile {tile} and region {region} must be positive")
-    if not 1 <= cluster <= 16:
-        raise ValueError(f"cluster {cluster} is not 1-16 blocks")
     side = region if tile % region == 0 else tile
-    if side * side * key_bytes + _LISTS_BYTES > _SMEM_BYTES:
+    keys = -(-side * side * key_bytes // 16) * 16
+    if keys + _STAGE_BYTES > _SMEM_BYTES:
         raise ValueError(f"a {side}x{side} px region of {key_bytes}-byte keys "
                          f"does not fit in shared memory (tile {tile}, "
                          f"region {region})")
+    if side > _MAX_SIDE or (tile // side) ** 2 > _MAX_SUB:
+        raise ValueError(f"{side}-px regions of a {tile}-px supertile: at "
+                         f"most {_MAX_SIDE} px and {_MAX_SUB} a supertile")
     return side
+
+
+@functools.lru_cache(maxsize=256)
+def _scratch_layout(n_items: int, T: int, tiles_x: int, tile: int,
+                    side: int, width: int, height: int, key_bytes: int):
+    """(bytes, offsets) of ``vrt_raster_scratch`` for one call's shapes,
+    asked of the library once per shape."""
+    import ctypes
+
+    offsets = (ctypes.c_longlong * 5)()
+    n = _build.load().vrt_raster_scratch(n_items, T, tiles_x, tile, side,
+                                         width, height, key_bytes, offsets)
+    return n, tuple(offsets)
+
+
+def _scratch(vis: torch.Tensor, work: WorkList, width: int, height: int,
+             tile: int, side: int, key_bytes: int):
+    """The kernels' scratch buffer for one call (uninitialised; the binning
+    clears what it counts in) and its byte offsets of the header, the
+    regions' totals, first entries, first chunks and the entries
+    (``vrt_raster_scratch``). Raises for shapes the kernels cannot take."""
+    tiles_x, _ = _tiles(width, height, tile)
+    n_items, T = work.items.shape[0], vis.shape[1]
+    if n_items * T >= 1 << (64 - _COST_BITS) or (
+            n_items * T * side * side >= 1 << _COST_BITS):
+        raise ValueError(f"{n_items} work items of {T} triangles pass the "
+                         f"binning's counters")
+    n, offsets = _scratch_layout(n_items, T, tiles_x, tile, side, width,
+                                 height, key_bytes)
+    if n < 0:
+        raise ValueError(f"the raster kernels cannot take {n_items} items "
+                         f"of {T} triangles at {width}x{height} (tile {tile},"
+                         f" region {side})")
+    buf = torch.empty(n, dtype=torch.uint8, device=vis.device)
+    return buf, offsets
+
+
+def _aligned(vis: torch.Tensor):
+    if vis.data_ptr() % 16:
+        raise ValueError("the raster kernels stage 16-byte rows: vis must "
+                         "be 16-byte aligned")
 
 
 def build_work_list(bbox: torch.Tensor, usable: torch.Tensor, width: int,
@@ -269,29 +321,31 @@ def _zid_outputs(width: int, height: int, device: torch.device):
 
 def rasterize(packed: PackedTris, work: WorkList, width: int, height: int,
               tile: int = TILE, reverse_z: bool = False,
-              wire_px: float = 0.0, region: int = REGION,
-              cluster: int = CLUSTER):
+              wire_px: float = 0.0, region: int = REGION):
     """Returns (z (H, W) float32, background F32_FAR, -F32_FAR under
     ``reverse_z``; id (H, W) int32, -1 background; attrs (H, W, 8) float32,
     perspective-divided, 0 on the background). CUDA tensors launch kernel
-    B1, CPU tensors run ``rasterize_plain``. ``region`` (``region_side``)
-    and ``cluster`` shape only the kernel's blocks, never the result."""
+    B1 (its binning launches and its raster launch, one counted launch),
+    CPU tensors run ``rasterize_plain``. ``region`` (``region_side``)
+    shapes only the kernel's blocks, never the result."""
     device = packed.vis.device
     _check(packed.vis, packed.coef, work)
-    side = region_side(tile, region, cluster=cluster)
+    side = region_side(tile, region)
     if device.type == "cpu":
         return rasterize_plain(packed, work, width, height, tile, reverse_z,
                                wire_px)
     vis, coef = packed
+    _aligned(vis)
+    buf, _ = _scratch(vis, work, width, height, tile, side, 8)
     z, ids = _zid_outputs(width, height, device)
     attrs = torch.empty((height, width, NUM_ATTRS), dtype=torch.float32,
                         device=device)
     tiles_x, _ = _tiles(width, height, tile)
     _build.launch("vrt_raster", device, vis.data_ptr(), coef.data_ptr(),
                   work.items.data_ptr(), work.items.shape[0], vis.shape[1],
-                  tiles_x, tile, side, cluster, width, height, int(reverse_z),
-                  float(wire_px), z.data_ptr(), ids.data_ptr(),
-                  attrs.data_ptr())
+                  tiles_x, tile, side, width, height, int(reverse_z),
+                  float(wire_px), buf.data_ptr(), buf.numel(),
+                  z.data_ptr(), ids.data_ptr(), attrs.data_ptr())
     rasterize.launches += 1
     return z, ids, attrs
 
@@ -301,22 +355,25 @@ rasterize.launches = 0
 
 def rasterize_zid(packed: PackedTris, work: WorkList, width: int,
                   height: int, tile: int = TILE, reverse_z: bool = False,
-                  region: int = REGION, cluster: int = CLUSTER):
+                  region: int = REGION):
     """Two-phase phase 1: (z, id) exactly as ``rasterize`` returns them,
     without the attributes. CUDA tensors launch kernel B3a, CPU tensors run
     ``rasterize_zid_plain``."""
     device = packed.vis.device
     _check(packed.vis, packed.coef, work)
-    side = region_side(tile, region, cluster=cluster)
+    side = region_side(tile, region)
     if device.type == "cpu":
         return rasterize_zid_plain(packed, work, width, height, tile,
                                    reverse_z)
+    _aligned(packed.vis)
+    buf, _ = _scratch(packed.vis, work, width, height, tile, side, 8)
     z, ids = _zid_outputs(width, height, device)
     tiles_x, _ = _tiles(width, height, tile)
     _build.launch("vrt_raster_zid", device, packed.vis.data_ptr(),
                   work.items.data_ptr(), work.items.shape[0],
-                  packed.vis.shape[1], tiles_x, tile, side, cluster, width,
-                  height, int(reverse_z), z.data_ptr(), ids.data_ptr())
+                  packed.vis.shape[1], tiles_x, tile, side, width, height,
+                  int(reverse_z), buf.data_ptr(),
+                  buf.numel(), z.data_ptr(), ids.data_ptr())
     rasterize_zid.launches += 1
     return z, ids
 
@@ -435,27 +492,111 @@ def rasterize_two_phase(packed: PackedTris, work: WorkList, width: int,
 
 
 def rasterize_depth(vis: torch.Tensor, work: WorkList, width: int,
-                    height: int, tile: int = TILE, region: int = REGION,
-                    cluster: int = DEPTH_CLUSTER) -> torch.Tensor:
+                    height: int, tile: int = TILE,
+                    region: int = REGION) -> torch.Tensor:
     """Depth-only raster of the visibility rows ``vis`` (I, T, 16): z
     (H, W) float32 of the nearest covered triangle, F32_FAR where none
     covers. CUDA tensors launch kernel B2, CPU tensors run
     ``rasterize_depth_plain``."""
     device = vis.device
     _check(vis, None, work)
-    side = region_side(tile, region, key_bytes=4, cluster=cluster)
+    side = region_side(tile, region, key_bytes=4)
     if device.type == "cpu":
         return rasterize_depth_plain(vis, work, width, height, tile)
+    _aligned(vis)
+    buf, _ = _scratch(vis, work, width, height, tile, side, 4)
     z = torch.empty((height, width), dtype=torch.float32, device=device)
     tiles_x, _ = _tiles(width, height, tile)
     _build.launch("vrt_raster_depth", device, vis.data_ptr(),
                   work.items.data_ptr(), work.items.shape[0], vis.shape[1],
-                  tiles_x, tile, side, cluster, width, height, z.data_ptr())
+                  tiles_x, tile, side, width, height, buf.data_ptr(),
+                  buf.numel(), z.data_ptr())
     rasterize_depth.launches += 1
     return z
 
 
 rasterize_depth.launches = 0
+
+
+def winner_rows(coef: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """B1's output gather alone (kernel ``vrt_raster_gather``, the code of
+    B1's output pass, where a warp loads its 32 winners' rows together):
+    (n, 27) float32, row i the coefficients of triangle ``ids[i]`` of
+    ``coef`` (I, T, 27), zeros where ``ids[i] < 0``. For timing the gather
+    against a library gather; the frame path runs it inside B1. CPU tensors
+    run ``winner_rows_plain``."""
+    n = ids.numel()
+    if (coef.dim() != 3 or coef.shape[2] != NUM_COEF
+            or coef.dtype != torch.float32 or ids.dtype != torch.int32
+            or coef.device != ids.device or not coef.is_contiguous()
+            or not ids.is_contiguous()):
+        raise ValueError(f"winner_rows: coef {tuple(coef.shape)} "
+                         f"{coef.dtype}, ids {ids.dtype} on {coef.device} "
+                         f"and {ids.device}, expected contiguous (I, T, 27) "
+                         f"float32 and int32 on one device")
+    if ids.device.type == "cpu":
+        return winner_rows_plain(coef, ids)
+    out = torch.empty((n, NUM_COEF), dtype=torch.float32, device=ids.device)
+    _build.launch("vrt_raster_gather", ids.device, coef.data_ptr(),
+                  ids.data_ptr(), n, out.data_ptr())
+    winner_rows.launches += 1
+    return out
+
+
+winner_rows.launches = 0
+
+
+def winner_rows_plain(coef: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``winner_rows``."""
+    flat = ids.reshape(-1).long()
+    rows = coef.reshape(-1, NUM_COEF)[flat.clamp(min=0)]
+    return torch.where((flat >= 0)[:, None], rows, torch.zeros_like(rows))
+
+
+class DeviceBins(NamedTuple):
+    """The card's bins of one call, read back (``device_bins``): per region
+    of the frame's row-major grid of ``side``-px squares its entries, their
+    summed cost and its chunks (the blocks its work was split across); the
+    entries whose rect passed SMALL_PX pixels (``n_large``, () int32)."""
+
+    entries: torch.Tensor
+    cost: torch.Tensor
+    chunks: torch.Tensor
+    side: int
+    scratch_bytes: int
+    n_large: torch.Tensor
+
+
+def device_bins(vis: torch.Tensor, work: WorkList, width: int, height: int,
+                tile: int = TILE, key_bytes: int = 8,
+                region: int = REGION) -> DeviceBins:
+    """Runs the binning launches of B1 (``key_bytes`` 8, B3a the same) or
+    B2 (4) alone on the card and reads their per-region results back (for
+    chip_smoke: the busiest region, the blocks it was split across, the
+    binning's time). Not counted as a kernel launch: no raster runs."""
+    _check(vis, None, work)
+    side = region_side(tile, region, key_bytes=key_bytes)
+    _aligned(vis)
+    buf, off = _scratch(vis, work, width, height, tile, side, key_bytes)
+    tiles_x, _ = _tiles(width, height, tile)
+    _build.launch("vrt_raster_bins", vis.device, vis.data_ptr(),
+                  work.items.data_ptr(), work.items.shape[0], vis.shape[1],
+                  tiles_x, tile, side, width, height, key_bytes,
+                  buf.data_ptr(), buf.numel())
+    n_regions = -(-width // side) * -(-height // side)
+
+    def ints(at, n, dtype):
+        size = torch.tensor([], dtype=dtype).element_size()
+        return buf[at:at + n * size].view(dtype)
+
+    total = ints(off[1], n_regions, torch.int64)
+    cstart = ints(off[3], n_regions + 1, torch.int32)
+    # the header's ints: next chunk, chunks, split regions, large rects
+    return DeviceBins(entries=(total >> _COST_BITS) & ((1 << 26) - 1),
+                      cost=total & ((1 << _COST_BITS) - 1),
+                      chunks=(cstart[1:] - cstart[:-1]).long(), side=side,
+                      scratch_bytes=buf.numel(),
+                      n_large=ints(off[0], 4, torch.int32)[3])
 
 
 class PairRects(NamedTuple):
@@ -472,11 +613,12 @@ class PairRects(NamedTuple):
     planes: torch.Tensor
 
 
-def _window_rects(vis: torch.Tensor, inst: torch.Tensor, x0w, y0w, x1w,
-                  y1w) -> PairRects:
-    """The rects (bbox ∩ window) of the triangles of instance ``inst[k]``
-    whose bbox meets window k, [x0w, x1w] x [y0w, y1w] ((n, 1) float32,
-    inclusive, inside the frame)."""
+def _window_hits(vis: torch.Tensor, inst: torch.Tensor, x0w, y0w, x1w,
+                 y1w):
+    """(window index, rect) of each triangle of instance ``inst[k]`` whose
+    bbox meets window k, [x0w, x1w] x [y0w, y1w] ((n, 1) float32,
+    inclusive, inside the frame); the rect is bbox ∩ window, and may hold
+    no pixel (``wd`` or its height <= 0)."""
     T = vis.shape[1]
     bb = vis[inst, :, 12:16]                                   # (n, T, 4)
     hit = ((bb[..., 0] <= x1w) & (bb[..., 2] >= x0w)
@@ -487,8 +629,16 @@ def _window_rects(vis: torch.Tensor, inst: torch.Tensor, x0w, y0w, x1w,
     y0 = torch.maximum(torch.ceil(rect[:, 1]), y0w[w_i, 0]).long()
     wd = torch.minimum(torch.floor(rect[:, 2]), x1w[w_i, 0]).long() - x0 + 1
     ht = torch.minimum(torch.floor(rect[:, 3]), y1w[w_i, 0]).long() - y0 + 1
-    return PairRects(x0=x0, y0=y0, wd=wd, cnt=wd * ht,
-                     gid=inst[w_i] * T + t_i, planes=vis[inst[w_i], t_i, :12])
+    return w_i, PairRects(x0=x0, y0=y0, wd=wd, cnt=wd * ht,
+                          gid=inst[w_i] * T + t_i,
+                          planes=vis[inst[w_i], t_i, :12])
+
+
+def _window_rects(vis: torch.Tensor, inst: torch.Tensor, x0w, y0w, x1w,
+                  y1w) -> PairRects:
+    """The rects (bbox ∩ window) of the triangles of instance ``inst[k]``
+    whose bbox meets window k (``_window_hits``)."""
+    return _window_hits(vis, inst, x0w, y0w, x1w, y1w)[1]
 
 
 def pair_rects(vis: torch.Tensor, work: WorkList, width: int, height: int,
@@ -531,10 +681,11 @@ def _blocks_live(pc: torch.Tensor, bx0, by0, bx1, by1) -> torch.Tensor:
     return live
 
 
-def _split_blocks(r: PairRects) -> PairRects:
-    """Rects ``r`` cut into CELL x CELL blocks from their top-left, keeping
-    the blocks that pass the block test."""
-    x0, y0, wd, gid, pc = r.x0, r.y0, r.wd, r.gid, r.planes
+def _blocks(r: PairRects):
+    """Rects ``r`` cut into CELL x CELL blocks from their top-left: each
+    block's rect index, inclusive corners and whether the block test keeps
+    it."""
+    x0, y0, wd = r.x0, r.y0, r.wd
     ht = r.cnt // wd
     nbx = (wd + CELL - 1) // CELL
     nb = nbx * ((ht + CELL - 1) // CELL)
@@ -546,12 +697,26 @@ def _split_blocks(r: PairRects) -> PairRects:
     by0 = y0[rep] + local // nbx[rep] * CELL
     bx1 = torch.minimum(bx0 + CELL, (x0 + wd)[rep]) - 1
     by1 = torch.minimum(by0 + CELL, (y0 + ht)[rep]) - 1
-    live = _blocks_live(pc[rep], bx0, by0, bx1, by1)
+    return rep, bx0, by0, bx1, by1, _blocks_live(r.planes[rep], bx0, by0,
+                                                 bx1, by1)
+
+
+def _split_blocks(r: PairRects) -> PairRects:
+    """Rects ``r`` cut into CELL x CELL blocks from their top-left, keeping
+    the blocks that pass the block test."""
+    rep, bx0, by0, bx1, by1, live = _blocks(r)
     rep = rep[live]
     wb = (bx1 - bx0 + 1)[live]
     return PairRects(x0=bx0[live], y0=by0[live], wd=wb,
-                     cnt=wb * (by1 - by0 + 1)[live], gid=gid[rep],
-                     planes=pc[rep])
+                     cnt=wb * (by1 - by0 + 1)[live], gid=r.gid[rep],
+                     planes=r.planes[rep])
+
+
+def _live_pixels(r: PairRects) -> torch.Tensor:
+    """Per rect, the pixels of its blocks that the block test keeps."""
+    rep, bx0, by0, bx1, by1, live = _blocks(r)
+    px = (bx1 - bx0 + 1) * (by1 - by0 + 1)
+    return torch.zeros_like(r.cnt).index_add_(0, rep[live], px[live])
 
 
 def block_pair_rects(vis: torch.Tensor, work: WorkList, width: int,
@@ -589,6 +754,77 @@ def block_pair_rects(vis: torch.Tensor, work: WorkList, width: int,
     if not parts:
         return _window_rects(vis, inst, x0w, y0w, x1w, y1w)
     return PairRects(*(torch.cat(f) for f in zip(*parts)))
+
+
+class RegionBins(NamedTuple):
+    """The binning of kernels B1, B2 and B3a in plain PyTorch
+    (``region_bins``): per entry, a triangle whose bbox meets a region of
+    the frame's row-major grid of ``side``-px squares within its work
+    item's supertile (once for each item that lists it), its global id and
+    its cost, the pairs the kernels evaluate there (the bbox-in-region
+    pixels, or above SMALL_PX those of the CELL x CELL blocks the block test
+    keeps); entries grouped by region, region r's at ``start[r]:start[r +
+    1]`` in work-list order, and each region's summed cost."""
+
+    start: torch.Tensor
+    gid: torch.Tensor
+    cost: torch.Tensor
+    region_cost: torch.Tensor
+    side: int
+
+
+def region_bins(vis: torch.Tensor, work: WorkList, width: int, height: int,
+                tile: int = TILE, region: int = REGION) -> RegionBins:
+    """The kernels' bins of (``vis``, ``work``), as the binning launches
+    build them on the card (csrc/raster.cu ``bins_kernel``; the card lists
+    a region's entries in another order). Items are taken in any order;
+    unused slots and supertiles outside the frame list nothing."""
+    side = region_side(tile, region, key_bytes=4)
+    k = tile // side
+    tiles_x, n_st = _tiles(width, height, tile)
+    regions_x = -(-width // side)
+    n_regions = regions_x * -(-height // side)
+    it = work.items.long()
+    items = it[(it[:, 0] >= 0) & (it[:, 1] >= 0) & (it[:, 1] < n_st)]
+    sub = torch.arange(k * k, device=items.device)
+    inst = items[:, 0:1].expand(-1, k * k).reshape(-1)
+    st = items[:, 1:2]
+    rx0 = ((st % tiles_x) * tile + sub % k * side).reshape(-1)
+    ry0 = ((st // tiles_x) * tile + sub // k * side).reshape(-1)
+    inside = (rx0 < width) & (ry0 < height)
+    inst, rx0, ry0 = inst[inside], rx0[inside], ry0[inside]
+    ridx = ry0 // side * regions_x + rx0 // side
+    x0w, y0w = rx0.float()[:, None], ry0.float()[:, None]
+    x1w = torch.clamp(x0w + side, max=width) - 1
+    y1w = torch.clamp(y0w + side, max=height) - 1
+    regions, gids, costs = [], [], []
+    step = max(1, (1 << 19) // max(vis.shape[1], 1))
+    for lo in range(0, inst.numel(), step):
+        sl = slice(lo, lo + step)
+        w_i, r = _window_hits(vis, inst[sl], x0w[sl], y0w[sl], x1w[sl],
+                              y1w[sl])
+        some = (r.wd > 0) & (r.cnt > 0)
+        w_i, r = w_i[some], PairRects(*(f[some] for f in r))
+        cost = r.cnt.clone()
+        big = r.cnt > SMALL_PX
+        cost[big] = _live_pixels(PairRects(*(f[big] for f in r)))
+        regions.append(ridx[sl][w_i])
+        gids.append(r.gid)
+        costs.append(cost)
+    dev = vis.device
+    region_of = torch.cat(regions) if regions else torch.zeros(
+        0, dtype=torch.long, device=dev)
+    gid = torch.cat(gids) if gids else torch.zeros_like(region_of)
+    cost = torch.cat(costs) if costs else torch.zeros_like(region_of)
+    order = torch.sort(region_of, stable=True).indices
+    counts = torch.bincount(region_of, minlength=n_regions)
+    start = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                       torch.cumsum(counts, 0)])
+    return RegionBins(start=start, gid=gid[order], cost=cost[order],
+                      region_cost=torch.zeros(n_regions, dtype=torch.long,
+                                              device=dev).index_add_(
+                          0, region_of, cost),
+                      side=side)
 
 
 def _covered_pairs(vis: torch.Tensor, work: WorkList, width: int,
