@@ -1,0 +1,54 @@
+"""The frozen reference against the program's own CPU path: at a small
+frame on the CPU, where the program runs its kernels' plain versions,
+both give the same frames bit for bit and the same counts, so the
+reference is the program's semantics as it stood."""
+
+import pytest
+import torch
+
+from portbench import cell as cellmod
+from portbench import run
+
+
+@pytest.mark.parametrize("workload", ["horizon.flythrough-1080p",
+                                      "map.flythrough-1080p"])
+def test_reference_frames_equal_the_programs_cpu_frames(workload):
+    c = cellmod.load(workload).scaled(120, 72, 64)
+    dev = torch.device("cpu")
+    hm, albedo = run.build_inputs(c, dev)
+    app = run.build_app(c, 5, hm, albedo, dev)
+    ref, cams = run.build_reference(c, hm, albedo, dev)
+    params = run.reference_params(c, 5, dev)
+    from vrenderer_tpu_torch.camera import flythrough
+
+    pcams = flythrough(64, world_size=2048.0, heightmap=hm, max_height=400.0)
+    assert torch.equal(pcams.eye, cams.eye)
+    pre = (app.renderer.cached_horizon_prepass(app.params)
+           if c.config["shadow_mode"] == "horizon" else None)
+    for i in (13, 40):
+        out, lum = app.renderer.render_adaptive(
+            pcams.frame(i), app.params, torch.tensor(0.31), 1 / 60,
+            shadow_prepass=pre)
+        f = ref.frame(cams.frame(i), params, 0.31, 1 / 60)
+        assert torch.equal(out.ldr, f.ldr) and torch.equal(out.hdr, f.hdr)
+        assert torch.equal(out.prim_id, f.prim_id)
+        assert torch.equal(out.depth, f.depth)
+        assert torch.equal(lum, f.adapted_lum)
+        k = ref.counts(cams.frame(i), params)
+        assert (int(out.num_selected), int(out.num_work_items),
+                int(out.overflow_mask)) == (k.selected, k.work_items,
+                                            k.overflow_mask)
+        assert f.counts == k
+    if pre is not None:
+        assert torch.equal(pre[0], ref.horizon_prepass(params)[0])
+
+
+def test_work_counts_do_not_move_with_the_seed():
+    c = cellmod.load("map.flythrough-1080p").scaled(120, 72, 8)
+    dev = torch.device("cpu")
+    hm, albedo = run.build_inputs(c, dev)
+    ref, cams = run.build_reference(c, hm, albedo, dev)
+    counts = [[ref.counts(cams.frame(i), run.reference_params(c, s, dev))
+               for i in range(0, 8, 3)] for s in (1, 2 ** 33 + 1)]
+    assert counts[0] == counts[1]
+    assert all(k.light_work_items > 0 for k in counts[0])
