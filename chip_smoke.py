@@ -79,7 +79,7 @@ Phases, each printing one line and raising on failure:
     ``python -m vrenderer_tpu_torch.capture`` runs). Run 1, 4 frames with
     PNG dumps and a chrome trace: each PNG read back through ``load_png``
     equals the frame quantized to 8 bits, the trace holds the Render, Wait
-    GPU, Present and CPU Frame scopes, the native event ring is filled.
+    GPU, Present and CPU Frame scopes, the profiler's frame ring is filled.
     Run 2, 64 adapting frames: the luminance history finite, away from
     0.5, and equal to a hand-threaded ``render_adaptive`` chain; 64 B1
     launches. Run 3, 64 frames without adaptation, each bit-identical to
@@ -1447,16 +1447,17 @@ def app_run(app, name: str, **kw):
     import torch
 
     reset_launches()
-    n_ev = len(app.profiler.native_events())
+    # the ring keeps the loop's frames and the drain after them
+    app.profiler.history = max(app.profiler.history, kw["num_frames"] + 1)
     t0 = time.perf_counter()
     outs = app.run_flythrough(**kw)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     launched = read_launches()
     frame_ms = app.profiler.frame_times_ms[-kw["num_frames"] - 1:-1]
-    evs = app.profiler.native_events()[n_ev:]
-    wait = sum(e["end_ns"] - e["begin_ns"] for e in evs
-               if e["name"] == "Wait GPU") * 1e-6
+    wait = sum(e["end"] - e["start"]
+               for f in app.profiler.frames[-kw["num_frames"] - 1:]
+               for e in f["events"] if e["name"] == "Wait GPU") * 1e3
     total = sum(app.profiler.frame_times_ms[-kw["num_frames"] - 1:])
     if launched["raster"] == 0:
         raise RuntimeError(f"{name}: kernel B1 was not launched")
@@ -1550,7 +1551,7 @@ def phase_app(device, card: str) -> None:
     app = App(cfg, scene=Scene.default(device), device=device)
     r = app.renderer
 
-    # run 1: PNGs, trace, native ring (and the warm-up of runs 2 and 3)
+    # run 1: PNGs, trace, frame ring (and the warm-up of runs 2 and 3)
     with tempfile.TemporaryDirectory() as tmp:
         outs, launched, sec, _, _ = app_run(
             app, "app run 1", num_frames=APP_DUMP_FRAMES, dump_dir=tmp,
@@ -1568,12 +1569,12 @@ def phase_app(device, card: str) -> None:
     scopes = {"Render", "Wait GPU", "Present", "CPU Frame"}
     if not scopes <= names:
         raise RuntimeError(f"the chrome trace lacks {scopes - names}")
-    n_native = len(app.profiler.native_events())
-    if n_native == 0:
-        raise RuntimeError("the native event ring is empty")
+    n_ring = sum(len(f["events"]) for f in app.profiler.frames)
+    if n_ring == 0:
+        raise RuntimeError("the frame ring is empty")
     log(f"app run 1: {frame_stats(outs, 'app run 1')}; {len(outs)} PNGs "
         f"read back through load_png equal to the 8-bit frames; chrome "
-        f"trace scopes {sorted(names)}; {n_native} native events; launches "
+        f"trace scopes {sorted(names)}; {n_ring} ring events; launches "
         f"{launched}; {sec:.1f} s")
     del outs
 

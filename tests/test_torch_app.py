@@ -90,10 +90,10 @@ def test_flythrough_dumps_and_traces(flythrough_pair):
         names = {e["name"] for e in json.load(fh)["traceEvents"]}
     assert {"Render", "Wait GPU", "Present", "CPU Frame"} <= names
     assert app.profiler.average_frame_ms() > 0
-    evs = app.profiler.native_events()
+    evs = [e for f in app.profiler.frames for e in f["events"]]
     assert {"Render", "Wait GPU", "Present"} <= {e["name"] for e in evs}
     assert max(e["frame"] for e in evs) >= FRAMES
-    assert all(e["end_ns"] > e["begin_ns"] for e in evs)
+    assert all(e["end"] > e["start"] for e in evs)
 
 
 def test_flythrough_pipelining_order_and_adapt_opt_out(tmp_path):
@@ -295,10 +295,11 @@ def test_frame_profiler_pause_threshold_and_rings():
     assert len(p.frames) == 3 and len(p.frame_times_ms) == 5
     depths = {e["name"]: e["depth"] for e in p.frames[-1]["events"]}
     assert depths == {"Render": 0, "Terrain": 1, "CPU Frame": -1}
-    # the native ring saw every frame and scope, the paused ones too
-    evs = p.native_events()
-    assert sum(e["name"] == "Render" for e in evs) == 9
-    assert max(e["frame"] for e in evs) == 10
+    # frames are counted through the pause: the ring's last three are the
+    # 8th to 10th begun, each with its Render
+    evs = [e for f in p.frames for e in f["events"]]
+    assert [e["frame"] for e in evs if e["name"] == "Render"] == [8, 9, 10]
+    assert p.frame == 10
 
 
 def test_flamegraph_svg(tmp_path):

@@ -1,8 +1,5 @@
 """The port's build of the native runtime library (native/vrt_native.cpp)
-against the JAX package's: the fBm heightmap bit for bit, and the
-scoped-event ring (tests/test_native.py)."""
-
-import time
+against the JAX package's: its clock and the fBm heightmap bit for bit."""
 
 import numpy as np
 import pytest
@@ -48,34 +45,3 @@ def test_procedural_heightmap_1024_bitwise_equal_to_jax():
     assert float(h.max()) <= 1.0 and float(h.std()) > 0.02
     np.testing.assert_array_equal(h.numpy(),
                                   np.asarray(jh.procedural_heightmap(1024, 5)))
-
-
-def test_native_profiler_scoped_events():
-    p = native.NativeProfiler(1024)
-    p.new_frame()
-    with p.scope("CPU Frame"):
-        with p.scope("Render"):
-            time.sleep(0.002)
-        with p.scope("Present"):
-            pass
-    by_name = {e["name"]: e for e in p.events()}
-    assert set(by_name) == {"CPU Frame", "Render", "Present"}
-    assert by_name["Render"]["depth"] == 1
-    assert by_name["CPU Frame"]["depth"] == 0
-    assert all(e["frame"] == 1 for e in by_name.values())
-    dur = by_name["Render"]["end_ns"] - by_name["Render"]["begin_ns"]
-    assert 1_500_000 < dur < 80_000_000
-    assert by_name["CPU Frame"]["begin_ns"] <= by_name["Render"]["begin_ns"]
-    assert by_name["CPU Frame"]["end_ns"] >= by_name["Render"]["end_ns"]
-
-
-def test_native_profiler_capacity_and_reset():
-    p = native.NativeProfiler(4)
-    for i in range(8):
-        p.begin(f"e{i}")
-        p.end()
-    assert [e["name"] for e in p.events()] == ["e0", "e1", "e2", "e3"]
-    p.reset()
-    assert p.events() == []
-    with pytest.raises(ValueError):
-        native.NativeProfiler(0)

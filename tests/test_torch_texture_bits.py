@@ -9,7 +9,11 @@ here, bit for bit, at the vertex stage's shapes (the selections of bench.py's
 envelope, 1024 slots, and of the 1080p flythrough, 512 slots; 33 vertices a
 side; the 256^2 heightmap and the 7-channel attribute texture; lattice and
 d3d addressing; one PyTorch thread) against the einsum form the port used
-before, and against the JAX package's functions. JAX's row products and
+before, and against the JAX package's functions. The einsum form is taken
+in contraction order, one fused multiply-add a step (``ordered_product``),
+as a BLAS that keeps each contraction whole adds it: ``torch.einsum``
+itself is not pinned, since MKL's AVX-512 sgemm splits some contractions
+at its block boundaries. JAX's row products and
 ``sample_points_matmul`` equal the port's bit for bit. Its column product
 of ``sample_separable`` does not everywhere, on the reference's side: XLA's
 CPU contraction rounds the two products separately, fl(fl(w0 r0) +
@@ -44,16 +48,50 @@ VIEWS = {"envelope": ("envelope", 40), "1080p": ("1080p", 13)}
 CASES = [("envelope", "lattice"), ("1080p", "lattice"), ("1080p", "d3d")]
 
 
-def einsum_separable(tex, u, v, mode):
-    """The port's earlier form, the JAX package's: (rows, samples)."""
+def matrix_taps(m):
+    """Each row's nonzero entries of an interpolation matrix (..., n, K),
+    in contraction order: (first index, its weight, last index, its weight
+    or 0 where the row has one entry)."""
+    nz = m != 0
+    assert (nz.sum(-1) <= 2).all()
+    K = m.shape[-1]
+    k0 = nz.int().argmax(-1)
+    k1 = K - 1 - nz.flip(-1).int().argmax(-1)
+    w0 = m.gather(-1, k0[..., None])[..., 0]
+    w1 = torch.where(k1 > k0, m.gather(-1, k1[..., None])[..., 0],
+                     torch.zeros_like(w0))
+    return k0, w0, k1, w1
+
+
+def ordered_product(m, at):
+    """sum_k m[..., i, k] * x_k accumulated over k in order, one fused
+    multiply-add a step from +0, with ``at(k)`` giving x at each row's
+    index k: a zero weight leaves the sum unchanged, so it is
+    fl(w1 x1 + fl(w0 x0 + 0)) over the row's nonzero entries, with the same
+    bits on every host."""
+    k0, w0, k1, w1 = matrix_taps(m)
+    a0, a1 = at(k0), at(k1)
+    ch = (None,) * (a0.ndim - w0.ndim)
+    w0, w1 = w0[(...,) + ch], w1[(...,) + ch]
+    return math3d.fma32(w1, a1, w0 * a0 + 0.0)
+
+
+def ordered_separable(tex, u, v, mode):
+    """The port's earlier form, the JAX package's: the einsums of the
+    interpolation matrices (rows, then columns), each contraction in order
+    (``ordered_product``): (rows, samples)."""
     H, W = tex.shape[0], tex.shape[1]
     au = texture.interp_matrix(u, W, mode)
     av = texture.interp_matrix(v, H, mode)
-    if tex.ndim == 2:
-        rows = torch.einsum("...vh,hw->...vw", av, tex)
-        return rows, torch.einsum("...vw,...uw->...vu", rows, au)
-    rows = torch.einsum("...vh,hwc->...vwc", av, tex)
-    return rows, torch.einsum("...vwc,...uw->...vuc", rows, au)
+    rows = ordered_product(av, lambda k: tex[k])
+    ch = (None,) * (tex.ndim - 2)
+
+    def column(k):          # k (n, 1, u): rows at each sample's column
+        idx = k[(...,) + ch].expand(rows.shape[:2] + k.shape[2:]
+                                    + rows.shape[3:])
+        return torch.gather(rows, 2, idx)
+
+    return rows, ordered_product(au[:, None], column)
 
 
 def bits(x) -> np.ndarray:
@@ -99,7 +137,7 @@ def test_separable_matches_einsum_and_jax(views, view, mode, tex):
     x = views[view]
     t, u, v = x[tex], x["u"], x["v"]
     got = texture.sample_separable(t, u, v, mode=mode)
-    rows, old = einsum_separable(t, u, v, mode)
+    rows, old = ordered_separable(t, u, v, mode)
     np.testing.assert_array_equal(bits(got), bits(old))
     # JAX's row product is the port's bit for bit
     sub = "...vh,hw->...vw" if t.ndim == 2 else "...vh,hwc->...vwc"
@@ -142,11 +180,14 @@ def test_points_match_matmul_form_and_jax(views):
     for tex in (x["hm"], x["vis"]):
         H, W = tex.shape[0], tex.shape[1]
         av, au = texture.interp_matrix(pv, H), texture.interp_matrix(pu, W)
+        # the matmul form: rows av @ tex (in contraction order,
+        # ``ordered_product``), then each sample's row times its column
+        # weights, summed
+        rows = ordered_product(av, lambda k: tex[k])
         if tex.ndim == 2:
-            old = torch.sum((av @ tex) * au, dim=-1)
+            old = torch.sum(rows * au, dim=-1)
         else:
-            old = torch.sum(torch.einsum("nh,hwc->nwc", av, tex)
-                            * au[..., None], dim=1)
+            old = torch.sum(rows * au[..., None], dim=1)
         got = texture.sample_points_matmul(tex, pu, pv)
         want = jtexture.sample_points_matmul(
             jnp.asarray(tex.numpy()), jnp.asarray(pu.numpy()),

@@ -129,11 +129,12 @@ class App:
         adapted_lum = torch.tensor(0.5, dtype=torch.float32,
                                    device=self.device)
         lum_trace = []
-        in_flight = []   # (frame index, FrameOutput, ldr, overflow, done)
+        # (frame index, its profiler frame, FrameOutput, ldr, overflow, done)
+        in_flight = []
         outputs = []
 
-        def retire(i, out, ldr, overflow, done):
-            with self.profiler.scope("Wait GPU"):
+        def retire(i, frame, out, ldr, overflow, done):
+            with self.profiler.scope("Wait GPU", frame=frame):
                 if done is not None:
                     done.synchronize()
                 ldr = ldr.numpy()
@@ -146,41 +147,44 @@ class App:
                     write_png(f"{dump_dir}/frame_{i:04d}.png", ldr)
             outputs.append(out)
 
-        for i in range(num_frames):
+        with self.profiler.recording():
+            for i in range(num_frames):
+                self.profiler.begin_frame()
+                cam = cams.frame(i)
+                prepass = None
+                if use_shadow_cache:
+                    with self.profiler.scope("ShadowMap"):
+                        prepass = r.cached_shadow_prepass(self.params,
+                                                          camera_pos=cam.eye)
+                elif use_horizon_cache:
+                    with self.profiler.scope("Terrain Shadow"):
+                        prepass = r.cached_horizon_prepass(self.params)
+                with self.profiler.scope("Render"):
+                    if adapt:
+                        out, adapted_lum = r.render_adaptive(
+                            cam, self.params, adapted_lum, dt,
+                            shadow_prepass=prepass)
+                        lum_trace.append(adapted_lum)
+                    else:
+                        out = r.render(cam, self.params,
+                                       shadow_prepass=prepass)
+                    done = None
+                    if on_card:
+                        ldr = out.ldr.to("cpu", non_blocking=True)
+                        overflow = out.overflow.to("cpu", non_blocking=True)
+                        done = torch.cuda.Event()
+                        done.record()
+                    else:
+                        ldr, overflow = out.ldr, out.overflow
+                in_flight.append((i, self.profiler.frame, out, ldr, overflow,
+                                  done))
+                if len(in_flight) >= frames_in_flight:
+                    retire(*in_flight.pop(0))
+                self.profiler.end_frame()
             self.profiler.begin_frame()
-            cam = cams.frame(i)
-            prepass = None
-            if use_shadow_cache:
-                with self.profiler.scope("ShadowMap"):
-                    prepass = r.cached_shadow_prepass(self.params,
-                                                      camera_pos=cam.eye)
-            elif use_horizon_cache:
-                with self.profiler.scope("Terrain Shadow"):
-                    prepass = r.cached_horizon_prepass(self.params)
-            with self.profiler.scope("Render"):
-                if adapt:
-                    out, adapted_lum = r.render_adaptive(
-                        cam, self.params, adapted_lum, dt,
-                        shadow_prepass=prepass)
-                    lum_trace.append(adapted_lum)
-                else:
-                    out = r.render(cam, self.params, shadow_prepass=prepass)
-                done = None
-                if on_card:
-                    ldr = out.ldr.to("cpu", non_blocking=True)
-                    overflow = out.overflow.to("cpu", non_blocking=True)
-                    done = torch.cuda.Event()
-                    done.record()
-                else:
-                    ldr, overflow = out.ldr, out.overflow
-            in_flight.append((i, out, ldr, overflow, done))
-            if len(in_flight) >= frames_in_flight:
+            while in_flight:
                 retire(*in_flight.pop(0))
             self.profiler.end_frame()
-        self.profiler.begin_frame()
-        while in_flight:
-            retire(*in_flight.pop(0))
-        self.profiler.end_frame()
         if trace_path is not None:
             self.profiler.export_chrome_trace(trace_path)
         self.adapted_lum = adapted_lum

@@ -10,6 +10,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from vrenderer_tpu_torch.profiler import sync_copy
 from vrenderer_tpu_torch.utils import math3d
 
 
@@ -50,7 +51,7 @@ def make_view_constants(camera: Camera, width: int, height: int,
     selection at a ground-height eye follows those bits (frustum planes
     through the eye cut boxes at its height)."""
     dev = camera.eye.device
-    host = Camera(*(f.detach().to("cpu") for f in camera))
+    host = Camera(*(sync_copy(f.detach(), "cpu") for f in camera))
     w2v = host.world_to_view()
     proj = math3d.persp_proj_d3d_style(
         math.radians(float(vfov_degrees)), width / height, z_near, z_far)
@@ -63,7 +64,7 @@ def make_view_constants(camera: Camera, width: int, height: int,
         "view_to_world": math3d.inverse_affine(w2v),
         "viewport": torch.tensor([width, height], dtype=torch.float32),
     }
-    out = {k: v.to(dev) for k, v in out.items()}
+    out = {k: sync_copy(v, dev) for k, v in out.items()}
     out["camera_pos"] = camera.eye
     return out
 

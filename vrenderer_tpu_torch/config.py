@@ -15,6 +15,8 @@ from typing import Tuple
 
 import torch
 
+from vrenderer_tpu_torch.profiler import sync_copy
+
 
 @dataclasses.dataclass(frozen=True)
 class TerrainSettings:
@@ -59,7 +61,7 @@ class TerrainSettings:
         computed on the host and moved to ``device``, so every device holds
         the host's bits."""
         i = torch.arange(self.max_lods, dtype=torch.float32)
-        return (4.0 * torch.exp2(i)).to(device)
+        return sync_copy(4.0 * torch.exp2(i), device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -124,7 +124,7 @@ class Editor:
         now = time.perf_counter()
         dt = min(now - (self._last_render_t or now - 1.0 / 30.0), 0.5)
         self._last_render_t = now
-        with app.profiler.scope("Render"):
+        with app.profiler.recording(), app.profiler.scope("Render"):
             if self.adapt:
                 out, lum = app.renderer.render_adaptive(
                     self.camera, app.params, self.adapted_lum, dt,

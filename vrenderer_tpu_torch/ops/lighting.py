@@ -20,11 +20,12 @@ import math
 
 import torch
 
+from vrenderer_tpu_torch.profiler import sync_copy
 from vrenderer_tpu_torch.utils import math3d
 
 
 def _vec3(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.float32, device=like.device)
+    return sync_copy(torch.tensor(values, dtype=torch.float32), like.device)
 
 
 def ambient_color(normal_y: torch.Tensor, ambient_top: torch.Tensor
@@ -159,8 +160,8 @@ def sky_color(view_dir_world: torch.Tensor, light_direction: torch.Tensor,
     base = above * (1.0 - below) + ground * below
 
     cosang = torch.sum(d * sun, dim=-1)
-    cos_disc = torch.cos(torch.deg2rad(torch.tensor(
-        angular_size_degrees, dtype=torch.float32, device=d.device)) * 0.5)
+    cos_disc = torch.cos(torch.deg2rad(sync_copy(torch.tensor(
+        angular_size_degrees, dtype=torch.float32), d.device)) * 0.5)
     disc = torch.clamp(
         (cosang - cos_disc) / torch.clamp(1.0 - cos_disc, min=1e-6), 0.0, 1.0)
     glow = torch.clamp(cosang, 0.0, 1.0) ** 64 * 0.35

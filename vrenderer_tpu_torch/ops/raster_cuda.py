@@ -66,6 +66,7 @@ import torch
 
 from vrenderer_tpu_torch.ops import _build
 from vrenderer_tpu_torch.ops.raster import F32_FAR, TriSetup
+from vrenderer_tpu_torch.profiler import span, sync_copy
 
 NUM_ATTRS = 8
 NUM_COEF = 3 * (1 + NUM_ATTRS)    # [inv_w, attr0..7] x (a, b, c)
@@ -120,8 +121,8 @@ def pack_vis(setup: TriSetup, num_instances: int) -> torch.Tensor:
     ok = setup.valid[:, None]
     zero = torch.zeros((), dtype=torch.float32, device=ok.device)
     planes = torch.cat([setup.edge.reshape(N, 9), setup.planes[:, 0, :]], 1)
-    empty = torch.tensor([F32_FAR, F32_FAR, -F32_FAR, -F32_FAR],
-                         dtype=torch.float32, device=ok.device)
+    empty = sync_copy(torch.tensor([F32_FAR, F32_FAR, -F32_FAR, -F32_FAR],
+                                   dtype=torch.float32), ok.device)
     vis = torch.cat([torch.where(ok, planes, zero),
                      torch.where(ok, setup.bbox, empty)], 1)
     return vis.reshape(num_instances, N // num_instances,
@@ -274,7 +275,8 @@ def build_work_list(bbox: torch.Tensor, usable: torch.Tensor, width: int,
                       ovl], dim=1)
     pos = torch.cumsum(full.reshape(-1), 0).reshape(n_st, I + 1) - 1
     num_items = full.sum()
-    kept = (ovl & (pos[:, 1:] < max_work)).nonzero()       # row-major order
+    with span("Sync"):                  # the count goes to the host
+        kept = (ovl & (pos[:, 1:] < max_work)).nonzero()   # row-major order
     items = torch.full((max_work, 2), -1, dtype=torch.int32, device=dev)
     n = kept.shape[0]
     items[:n, 0] = perm[kept[:, 1]].to(torch.int32)

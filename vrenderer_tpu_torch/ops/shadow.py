@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from vrenderer_tpu_torch.ops import texture
+from vrenderer_tpu_torch.profiler import sync_copy
 from vrenderer_tpu_torch.utils import math3d
 
 
@@ -184,10 +185,11 @@ def sun_shear_matrices(light_direction: torch.Tensor, world_size: float,
     and moved to the light direction's device, as ``make_view_constants``
     does: the light selection culls against these planes."""
     dev = light_direction.device
-    out = _sun_shear_matrices(light_direction.detach().to("cpu"), world_size,
-                              torch.as_tensor(max_height).detach().to("cpu"),
-                              resolution, k_max)
-    return tuple(v.to(dev) for v in out)
+    out = _sun_shear_matrices(
+        sync_copy(light_direction.detach(), "cpu"), world_size,
+        sync_copy(torch.as_tensor(max_height).detach(), "cpu"), resolution,
+        k_max)
+    return tuple(sync_copy(v, dev) for v in out)
 
 
 def _sun_shear_matrices(light_direction, world_size, max_height, resolution,
@@ -254,7 +256,7 @@ def factors_from_sun_shear_map(s0: torch.Tensor, heightmap: torch.Tensor,
     hk = torch.stack([dh * k for k in range(num_slabs)])[:, None]
     u = (gx + hk * kx) / span_x + 0.5                           # (K, Wt)
     v = (gz + hk * kz) / span_z + 0.5                           # (K, Ht)
-    offs = torch.tensor([-tap, tap], dtype=torch.float32, device=dev)
+    offs = sync_copy(torch.tensor([-tap, tap], dtype=torch.float32), dev)
     uo = u[:, None, :] + offs[None, :, None]                     # (K, 2, Wt)
     vo = v[:, None, :] + offs[None, :, None]                     # (K, 2, Ht)
 

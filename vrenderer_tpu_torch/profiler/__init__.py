@@ -3,6 +3,9 @@ from vrenderer_tpu_torch.profiler.profiler import (  # noqa: F401
     REFERENCE_GPU_COUNTERS,
     FrameProfiler,
     PassTimer,
+    last_recorder,
+    span,
     start_device_trace,
     stop_device_trace,
+    sync_copy,
 )

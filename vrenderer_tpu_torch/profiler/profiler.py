@@ -1,5 +1,5 @@
-"""Per-pass timers, the frame ring and device traces, with the reference's
-counter names (Renderer.cpp:326-440; the JAX package's
+"""Per-pass timers, the frame ring and its spans, and device traces, with
+the reference's counter names (Renderer.cpp:326-440; the JAX package's
 ``vrenderer_tpu.profiler``).
 
 * ``PassTimer`` times one pass at a time. On the card: a warm-up call, then
@@ -12,15 +12,26 @@ counter names (Renderer.cpp:326-440; the JAX package's
   PyTorch neither hoists nor prunes a pass, so nothing here needs that.)
 * ``FrameProfiler``: the host-side frame ring (10 frames, main.cpp:69),
   pause and auto-pause (ProfilerWindow.cpp:212-216, 557), the 1500-sample
-  frame-time history (Editor.cpp:64-91) and nested scopes, each also
-  recorded in the native event ring (``utils/native.py``); exported as a
-  chrome://tracing JSON or an SVG flame graph.
+  frame-time history (Editor.cpp:64-91) and nested scopes; exported as a
+  chrome://tracing JSON or an SVG flame graph. Every scope is a span: its
+  name, start and end (``time.perf_counter`` seconds), the span that
+  caused it (``parent``, an ``id`` of the same frame ring) and the frame it
+  belongs to (``frame``, counted from 1 by ``begin_frame``).
+* ``span``: the frame path's spans (``Renderer``'s layers and every host
+  sync, ``Sync``), recorded into the profiler that ``recording`` made
+  active, and a shared no-op where none is: ``Renderer`` alone records
+  nothing. A loop records them when its profiler's ``spans`` is set or a
+  ``torch.profiler`` trace is running; each frame of the ring keeps the
+  offset from the ring's clock to the trace's (``clock_offset_ns``), so
+  the spans can be laid on the trace's timeline.
 * ``start_device_trace`` / ``stop_device_trace``: a ``torch.profiler``
-  trace of the card's kernels (the CPU's ops where there is no card).
+  trace of the card's activities (the CPU's operators where there is no
+  card), written with the spans recorded meanwhile in one chrome trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -31,8 +42,6 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
 import torch
-
-from vrenderer_tpu_torch.utils import native
 
 # Counter names from the reference frame (SURVEY.md section 5.1)
 REFERENCE_GPU_COUNTERS = [
@@ -109,41 +118,122 @@ class PassTimer:
         return "\n".join(lines)
 
 
+class _Scope:
+    """One span of a ``FrameProfiler`` around a ``with`` block."""
+
+    __slots__ = ("prof", "name", "frame")
+
+    def __init__(self, prof: "FrameProfiler", name: str,
+                 frame: Optional[int]):
+        self.prof, self.name, self.frame = prof, name, frame
+
+    def __enter__(self):
+        self.prof.begin(self.name, self.frame)
+
+    def __exit__(self, *exc):
+        self.prof.end()
+
+
+class _NoSpan:
+    """The span where no profiler records: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return None
+
+
+_NO_SPAN = _NoSpan()
+_active: Optional["FrameProfiler"] = None   # what ``span`` records into
+_last: Optional["FrameProfiler"] = None     # the last that recorded spans
+
+
+def span(name: str):
+    """A span of the frame path (a ``with`` block) in the active profiler's
+    ring (``FrameProfiler.recording``), with the span open around it as its
+    parent; the shared no-op where no profiler records."""
+    prof = _active
+    if prof is None:
+        return _NO_SPAN
+    return _Scope(prof, name, None)
+
+
+def sync_copy(t: torch.Tensor, device) -> torch.Tensor:
+    """``t.to(device)`` in a ``Sync`` span: on the card a copy from or to
+    pageable host memory waits until the stream has drained (the same call
+    sites on the CPU wait for nothing)."""
+    with span("Sync"):
+        return t.to(device)
+
+
+def last_recorder() -> Optional["FrameProfiler"]:
+    """The profiler whose ring received the last recorded spans, kept after
+    its owner is gone (for reading them once the loop is over), or None."""
+    return _last
+
+
 @dataclass
 class FrameProfiler:
-    """Host-side frame ring and chrome trace export (module docstring).
-    Events are coarse host phases; ``PassTimer`` and the device trace give
-    the device's breakdown. Every scope is also recorded in the native
-    event ring, which the profiler (re)initialises."""
+    """Host-side frame ring, spans and chrome trace export (module
+    docstring). ``spans``: loops under ``recording`` record the frame
+    path's spans even when no ``torch.profiler`` trace runs."""
 
     history: int = 10
     time_history: int = 1500
     pause_threshold_ms: Optional[float] = None
+    spans: bool = False
     frames: List[Dict] = field(default_factory=list)
     frame_times_ms: List[float] = field(default_factory=list)
     paused: bool = False
+    frame: int = 0                 # frames begun, paused ones included
     _open: List[Dict] = field(default_factory=list)
     _frame_start: Optional[float] = None
-    _native: native.NativeProfiler = field(default=None, repr=False)
+    _ids: int = 0
 
-    def __post_init__(self):
-        self._native = native.NativeProfiler()
+    @contextlib.contextmanager
+    def recording(self):
+        """Make this profiler the one ``span`` records into for the block
+        (a loop's frames), when ``spans`` is set or a ``torch.profiler``
+        trace is running; otherwise ``span`` stays the no-op there."""
+        global _active, _last
+        prev = _active
+        on = self.spans or torch.autograd._profiler_enabled()
+        _active = self if on else None
+        if on:
+            _last = self
+            if _trace is not None and self not in _trace[2]:
+                _trace[2].append(self)
+        try:
+            yield self
+        finally:
+            _active = prev
 
     def begin_frame(self):
         self._frame_start = time.perf_counter()
-        self._native.new_frame()
+        self.frame += 1
         if self.paused:
             return
-        self.frames.append({"events": [], "start": self._frame_start})
+        self.frames.append({
+            "events": [], "start": self._frame_start, "frame": self.frame,
+            # torch.profiler's clock (kineto's: Unix-epoch ns, on the CPU
+            # build and the card's CUDA build alike) = ring clock + offset
+            "clock_offset_ns": time.time_ns() - time.perf_counter_ns()})
         if len(self.frames) > self.history:
             self.frames.pop(0)
 
-    def begin(self, name: str):
-        self._native.begin(name)
-        self._open.append({"name": name, "start": time.perf_counter()})
+    def begin(self, name: str, frame: Optional[int] = None):
+        """Open a span; ``frame``: the frame it belongs to, if not the
+        current one (a "Wait GPU" retires an earlier frame)."""
+        self._ids += 1
+        self._open.append({
+            "name": name, "start": time.perf_counter(), "id": self._ids,
+            "parent": self._open[-1]["id"] if self._open else None,
+            "frame": self.frame if frame is None else frame})
 
     def end(self):
-        self._native.end()
         ev = self._open.pop()
         if self.paused or not self.frames:
             return
@@ -151,17 +241,9 @@ class FrameProfiler:
         ev["depth"] = len(self._open)
         self.frames[-1]["events"].append(ev)
 
-    def scope(self, name: str):
-        prof = self
-
-        class _Scope:
-            def __enter__(self):
-                prof.begin(name)
-
-            def __exit__(self, *exc):
-                prof.end()
-
-        return _Scope()
+    def scope(self, name: str, frame: Optional[int] = None):
+        """A span around a ``with`` block (``begin`` and ``end``)."""
+        return _Scope(self, name, frame)
 
     def end_frame(self):
         now = time.perf_counter()
@@ -177,9 +259,11 @@ class FrameProfiler:
         if self.paused:
             return
         if self.frames and self._frame_start is not None:
+            self._ids += 1
             self.frames[-1]["events"].append({
                 "name": "CPU Frame", "start": self._frame_start, "end": now,
-                "depth": -1})
+                "depth": -1, "id": self._ids, "parent": None,
+                "frame": self.frame})
 
     def export_chrome_trace(self, path: str):
         """chrome://tracing / Perfetto JSON of the frame ring."""
@@ -189,7 +273,9 @@ class FrameProfiler:
                 events.append({
                     "name": ev["name"], "ph": "X", "ts": ev["start"] * 1e6,
                     "dur": (ev["end"] - ev["start"]) * 1e6, "pid": 0,
-                    "tid": max(ev["depth"], 0)})
+                    "tid": max(ev["depth"], 0),
+                    "args": {"frame": ev["frame"], "id": ev["id"],
+                             "parent": ev["parent"]}})
         with open(path, "w") as fh:
             json.dump({"traceEvents": events}, fh)
 
@@ -255,11 +341,6 @@ class FrameProfiler:
         with open(path, "w") as fh:
             fh.write("".join(parts))
 
-    def native_events(self):
-        """The native ring's events (name, begin_ns, end_ns, depth, frame
-        dicts)."""
-        return self._native.events()
-
     def average_frame_ms(self) -> float:
         """Mean ms of the ring's frames (the title bar's,
         Renderer.cpp:190)."""
@@ -268,34 +349,64 @@ class FrameProfiler:
         return sum(durs) / len(durs) * 1e3 if durs else 0.0
 
 
-_trace: Optional[tuple] = None     # (running profile, logdir)
+# (running profile, logdir, profilers recording spans meanwhile, its start
+# on the ring clock)
+_trace: Optional[tuple] = None
 
 
 def start_device_trace(logdir: str) -> None:
-    """Start a ``torch.profiler`` trace of the card's kernels and the host's
-    ops (the CPU's ops alone where there is no card)."""
+    """Start a ``torch.profiler`` trace of the card's activities (kernels,
+    copies, sets), or of the CPU's operators where there is no card. Loops
+    under ``FrameProfiler.recording`` record their spans meanwhile."""
     global _trace
     if _trace is not None:
         raise RuntimeError("a device trace is already running")
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    acts = [torch.profiler.ProfilerActivity.CUDA
+            if torch.cuda.is_available()
+            else torch.profiler.ProfilerActivity.CPU]
     prof = torch.profiler.profile(activities=acts)
     prof.start()
-    _trace = (prof, logdir)
+    _trace = (prof, logdir, [], time.perf_counter())
 
 
 def stop_device_trace() -> torch.profiler.profile:
-    """Stop the trace, write it to ``<logdir>/trace.json`` (chrome://tracing
-    or Perfetto) and return the finished ``torch.profiler.profile``."""
+    """Stop the trace and write it to ``<logdir>/trace.json``
+    (chrome://tracing or Perfetto) with the spans recorded meanwhile, on
+    the trace's clock, as a process of their own ("host spans", a row a
+    nesting depth) above the device's rows; return the finished
+    ``torch.profiler.profile``."""
     global _trace
     if _trace is None:
         raise RuntimeError("no device trace is running")
-    prof, logdir = _trace
+    prof, logdir, recorders, t0 = _trace
     _trace = None
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     prof.stop()
+    t1 = time.perf_counter()
     os.makedirs(logdir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        trace = json.load(fh)
+    base = trace.get("baseTimeNanoseconds", 0)
+    events = trace["traceEvents"]
+    events.append({"ph": "M", "name": "process_name", "pid": -1,
+                   "args": {"name": "host spans"}})
+    events.append({"ph": "M", "name": "process_sort_index", "pid": -1,
+                   "args": {"sort_index": -1}})
+    for rec in recorders:
+        for f in rec.frames:
+            for ev in f["events"]:
+                if ev["end"] < t0 or ev["start"] > t1:
+                    continue
+                ns = round(ev["start"] * 1e9) + f["clock_offset_ns"]
+                events.append({
+                    "name": ev["name"], "ph": "X", "pid": -1,
+                    "tid": ev["depth"] + 1, "ts": (ns - base) / 1e3,
+                    "dur": (ev["end"] - ev["start"]) * 1e6,
+                    "args": {"frame": ev["frame"], "id": ev["id"],
+                             "parent": ev["parent"]}})
+    with open(path, "w") as fh:
+        json.dump(trace, fh)
     return prof

@@ -48,6 +48,7 @@ from vrenderer_tpu_torch.config import FrameConfig, LightParams
 from vrenderer_tpu_torch.ops import (
     lighting, raster, raster_cuda, shadow, texture, vertex,
 )
+from vrenderer_tpu_torch.profiler import span, sync_copy
 from vrenderer_tpu_torch.terrain import grid as gridmod
 from vrenderer_tpu_torch.terrain import quadtree
 from vrenderer_tpu_torch.utils import math3d
@@ -274,7 +275,8 @@ class Renderer:
         L = M[:, :3, :]
         world = (torch.einsum("bvc,bcd->bvd", self._scene_obj, L)
                  + M[:, 3][:, None, :])
-        l_inv_t = torch.linalg.inv(L).transpose(1, 2)
+        with span("Sync"):              # inv checks its pivots on the host
+            l_inv_t = torch.linalg.inv(L).transpose(1, 2)
         nrm = math3d.normalize(
             torch.einsum("bvc,bcd->bvd", self._scene_obj_nrm, l_inv_t))
         h01 = world[..., 1] / torch.clamp(max_height, min=1e-6)
@@ -320,7 +322,7 @@ class Renderer:
         transforms): drive loops call it every frame."""
         if params is None:
             params = FrameParams.default(self.light, self.device)
-        key = tuple(t.detach().cpu().numpy().tobytes() for t in (
+        key = tuple(sync_copy(t.detach(), "cpu").numpy().tobytes() for t in (
             params.light_direction, params.max_height, self.scene_transforms))
         cached = self._horizon_prepass_cache
         if cached is None or cached[0] != key:
@@ -364,24 +366,27 @@ class Renderer:
         cfg = self.config
         out_h = height if band is None else band[1]
         setups, bboxes, usables, dists = [], [], [], []
-        for world, attrs, valid, tri_idx in parts:
-            comp = raster.setup_components(world, attrs, valid, tri_idx, wtc,
-                                           width, height)
-            bbox, usable, dist = raster_cuda.instance_bbox_components(
-                comp, width, height, valid)
-            if band is not None:
-                y0 = float(band[0])
-                bbox = bbox - bbox.new_tensor([0.0, y0, 0.0, y0])
-                comp = raster.shift_components_y(comp, y0)
-            setups.append(raster.stack_components(comp))
-            bboxes.append(bbox)
-            usables.append(usable)
-            dists.append(dist)
-        setup = raster.TriSetup(*(torch.cat(f) for f in zip(*setups)))
-        work = raster_cuda.build_work_list(
-            torch.cat(bboxes), torch.cat(usables), width, out_h,
-            tile=cfg.raster.tile_w, max_work=self.max_work,
-            order_key=torch.cat(dists))
+        with span("Setup"):
+            for world, attrs, valid, tri_idx in parts:
+                comp = raster.setup_components(world, attrs, valid, tri_idx,
+                                               wtc, width, height)
+                bbox, usable, dist = raster_cuda.instance_bbox_components(
+                    comp, width, height, valid)
+                if band is not None:
+                    y0 = float(band[0])
+                    bbox = bbox - bbox.new_tensor([0.0, y0, 0.0, y0])
+                    comp = raster.shift_components_y(comp, y0)
+                setups.append(raster.stack_components(comp))
+                bboxes.append(bbox)
+                usables.append(usable)
+                dists.append(dist)
+            setup = raster.TriSetup(*(torch.cat(f) for f in zip(*setups)))
+            bbox, usable, dist = (torch.cat(x) for x in (bboxes, usables,
+                                                         dists))
+        with span("Bin"):
+            work = raster_cuda.build_work_list(
+                bbox, usable, width, out_h, tile=cfg.raster.tile_w,
+                max_work=self.max_work, order_key=dist)
         return setup, sum(p[0].shape[0] for p in parts), work
 
     def _raster_parts(self, vc: Dict[str, torch.Tensor], params: FrameParams,
@@ -398,20 +403,24 @@ class Renderer:
         if sh.vout is not None:
             instances, vout = sh.instances, sh.vout
         else:
-            lr = ts.lod_ranges(dev)
-            if lock_instances is None:
-                lock_instances = quadtree.select_all_surfaces(
-                    ts, vc["camera_pos"], math3d.frustum_planes(wtc), lr)
-            instances = self._clip_active(lock_instances)
-            vout = vertex.vertex_stage(
-                ts, instances, vc["camera_pos"], self.heightmap, self.albedo,
-                sh.field, params.max_height, lr, nrm_field=self._nrm_field)
+            with span("Select"):
+                lr = ts.lod_ranges(dev)
+                if lock_instances is None:
+                    lock_instances = quadtree.select_all_surfaces(
+                        ts, vc["camera_pos"], math3d.frustum_planes(wtc), lr)
+                instances = self._clip_active(lock_instances)
+            with span("Vertex"):
+                vout = vertex.vertex_stage(
+                    ts, instances, vc["camera_pos"], self.heightmap,
+                    self.albedo, sh.field, params.max_height, lr,
+                    nrm_field=self._nrm_field)
         parts = [(vout.world, vout.attrs, instances.valid, self.tri_indices)]
         if sh.scene_wa is not None:
             s_world, s_attrs = sh.scene_wa
             if sh.mesh_fn is not None:
-                s_attrs = s_attrs.clone()
-                s_attrs[..., vertex.ATTR_SHADOW] = sh.mesh_fn(s_world)
+                with span("Vertex"):        # the meshes' shadow factors
+                    s_attrs = s_attrs.clone()
+                    s_attrs[..., vertex.ATTR_SHADOW] = sh.mesh_fn(s_world)
             parts.append((s_world, s_attrs,
                           torch.ones((s_world.shape[0],), dtype=torch.bool,
                                      device=dev), self._scene_tri_idx))
@@ -425,7 +434,9 @@ class Renderer:
         parts, instances = self._raster_parts(vc, params, sh, lock_instances)
         setup, n_inst, work = self._bin(parts, vc["world_to_clip"],
                                         cfg.width, cfg.height, band)
-        return raster_cuda.pack_setup(setup, n_inst), work, instances
+        with span("Setup"):
+            packed = raster_cuda.pack_setup(setup, n_inst)
+        return packed, work, instances
 
     @staticmethod
     def _setup(parts, wtc, width: int, height: int) -> raster.TriSetup:
@@ -446,26 +457,30 @@ class Renderer:
             # the JAX package's "xla" backend counts no work items
             parts, instances = self._raster_parts(vc, params, sh,
                                                   lock_instances)
-            setup = self._setup(parts, vc["world_to_clip"], cfg.width,
-                                cfg.height)
-            if band is not None:
-                setup = raster.shift_setup_y(setup, float(band[0]))
-            z, prim_id, attrs = raster.rasterize_xla(
-                setup, cfg.width, out_h, reverse_z=rs.reverse_z,
-                wire_px=1.0 if rs.wireframe else 0.0)
+            with span("Setup"):
+                setup = self._setup(parts, vc["world_to_clip"], cfg.width,
+                                    cfg.height)
+                if band is not None:
+                    setup = raster.shift_setup_y(setup, float(band[0]))
+            with span("Raster"):
+                z, prim_id, attrs = raster.rasterize_xla(
+                    setup, cfg.width, out_h, reverse_z=rs.reverse_z,
+                    wire_px=1.0 if rs.wireframe else 0.0)
             return (z, prim_id, attrs, instances,
                     torch.zeros((), dtype=torch.int64, device=self.device))
         packed, work, instances = self._raster_inputs(vc, params, sh,
                                                       lock_instances, band)
-        if rs.two_phase and not rs.wireframe:
-            z, prim_id, attrs = raster_cuda.rasterize_two_phase(
-                packed, work, cfg.width, out_h, tile=rs.tile_w,
-                sub_h=rs.subtile_h, win_w=rs.win_w, reverse_z=rs.reverse_z)
-        else:
-            z, prim_id, attrs = raster_cuda.rasterize(
-                packed, work, cfg.width, out_h, tile=rs.tile_w,
-                reverse_z=rs.reverse_z,
-                wire_px=1.0 if rs.wireframe else 0.0)
+        with span("Raster"):
+            if rs.two_phase and not rs.wireframe:
+                z, prim_id, attrs = raster_cuda.rasterize_two_phase(
+                    packed, work, cfg.width, out_h, tile=rs.tile_w,
+                    sub_h=rs.subtile_h, win_w=rs.win_w,
+                    reverse_z=rs.reverse_z)
+            else:
+                z, prim_id, attrs = raster_cuda.rasterize(
+                    packed, work, cfg.width, out_h, tile=rs.tile_w,
+                    reverse_z=rs.reverse_z,
+                    wire_px=1.0 if rs.wireframe else 0.0)
         return z, prim_id, attrs, instances, work.num_items
 
     def _view_rays(self, vc: Dict[str, torch.Tensor], band=None
@@ -504,7 +519,8 @@ class Renderer:
         world_size = float(self.config.terrain.world_size)
         if scene_xf is None:
             scene_xf = self.scene_transforms
-        scene_wa = self._scene_wa(params, scene_xf)
+        with span("Scene"):
+            scene_wa = self._scene_wa(params, scene_xf)
         if self.config.shadow_mode == "map":
             return self._map_shadow_inputs(vc, params, scene_wa,
                                            shadow_prepass, locked)
@@ -545,28 +561,33 @@ class Renderer:
         selection, so nothing is shared there (``locked``)."""
         cfg = self.config
         share = False
-        if shadow_prepass is not None:
-            # a cached whole-world map: the light raster ran outside the
-            # frame, and the cache is only valid for selections that do not
-            # track the camera exactly, where sharing does not apply
-            depth_map, wtc_l, z_range, overflow, shear = shadow_prepass
-        else:
-            # a coarsened (light eye, lod bias) or snapped-eye selection is
-            # other geometry: the main view must morph from the true eye
-            share = (not locked and cfg.shadow_select == "main"
-                     and cfg.shadow_lod_bias == 0
-                     and cfg.shadow_eye_quant == 0.0)
-            out = self._light_depth_pass(params, vc["camera_pos"], scene_wa,
-                                         return_geom=share)
-            depth_map, wtc_l, z_range, overflow, shear = out[:5]
-        field = self.shadow_field_from_map(depth_map, shear, params)
+        with span("Light pass"):
+            if shadow_prepass is not None:
+                # a cached whole-world map: the light raster ran outside the
+                # frame, and the cache is only valid for selections that do
+                # not track the camera exactly, where sharing does not apply
+                depth_map, wtc_l, z_range, overflow, shear = shadow_prepass
+            else:
+                # a coarsened (light eye, lod bias) or snapped-eye selection
+                # is other geometry: the main view must morph from the true
+                # eye
+                share = (not locked and cfg.shadow_select == "main"
+                         and cfg.shadow_lod_bias == 0
+                         and cfg.shadow_eye_quant == 0.0)
+                out = self._light_depth_pass(params, vc["camera_pos"],
+                                             scene_wa, return_geom=share)
+                depth_map, wtc_l, z_range, overflow, shear = out[:5]
+            field = self.shadow_field_from_map(depth_map, shear, params)
         instances = vout = None
         if share:
-            instances = self._main_members(out[5], vc)
+            with span("Select"):
+                instances = self._main_members(out[5], vc)
             geom = out[6]
-            vout = vertex.VertexOutput(
-                world=geom.world, attrs=vertex.vertex_attrs(
-                    cfg.terrain, geom, self.albedo, field, self._nrm_field))
+            with span("Vertex"):
+                vout = vertex.VertexOutput(
+                    world=geom.world, attrs=vertex.vertex_attrs(
+                        cfg.terrain, geom, self.albedo, field,
+                        self._nrm_field))
         mesh_fn = None
         if scene_wa is not None:
             def mesh_fn(w):
@@ -634,13 +655,14 @@ class Renderer:
         statistics)."""
         g = self._gbuffer(camera, params, lock_instances, band, scene_xf,
                           shadow_prepass)
-        exposure = params.exposure
-        if adapt is not None:
-            adapted_lum, dt = adapt
-            new_adapted, scale = lighting.adapt_exposure(g.hdr, g.covered,
-                                                         adapted_lum, dt)
-            exposure = exposure * scale
-        out = self._finish_frame(g, params, exposure)
+        with span("Shade"):
+            exposure = params.exposure
+            if adapt is not None:
+                adapted_lum, dt = adapt
+                new_adapted, scale = lighting.adapt_exposure(
+                    g.hdr, g.covered, adapted_lum, dt)
+                exposure = exposure * scale
+            out = self._finish_frame(g, params, exposure)
         if adapt is not None:
             return out, new_adapted
         return out
@@ -652,24 +674,26 @@ class Renderer:
         raster ("Terrain"), deferred lighting. With ``band`` the geometry
         and the shadow phase are still the whole frame's; the raster and
         the lighting cover the band's rows."""
-        vc = self._view(camera)
+        with span("View"):
+            vc = self._view(camera)
         sh = self._shadow_inputs(vc, params, scene_xf, shadow_prepass,
                                  locked=lock_instances is not None)
 
         # "Terrain": geometry + visibility + interpolated G-buffer attrs
         z, prim_id, attrs, instances, n_work = self._terrain_pass(
             vc, params, sh, lock_instances, band)
-        covered = (prim_id >= 0) & (params.render_terrain > 0.5)
-        albedo = attrs[..., vertex.ATTR_ALBEDO]
-        normal = attrs[..., vertex.ATTR_NORMAL]
-        shadow_px = torch.clamp(attrs[..., vertex.ATTR_SHADOW], 0.0, 1.0)
-        rays = self._view_rays(vc, band)
+        with span("Shade"):
+            covered = (prim_id >= 0) & (params.render_terrain > 0.5)
+            albedo = attrs[..., vertex.ATTR_ALBEDO]
+            normal = attrs[..., vertex.ATTR_NORMAL]
+            shadow_px = torch.clamp(attrs[..., vertex.ATTR_SHADOW], 0.0, 1.0)
+            rays = self._view_rays(vc, band)
 
-        # "Deferred Lighting" (Renderer.cpp:417-428)
-        hdr = lighting.deferred_lighting(
-            albedo, normal, shadow_px, covered, -rays,
-            params.light_direction, params.light_irradiance,
-            params.light_color, params.ambient_intensity)
+            # "Deferred Lighting" (Renderer.cpp:417-428)
+            hdr = lighting.deferred_lighting(
+                albedo, normal, shadow_px, covered, -rays,
+                params.light_direction, params.light_irradiance,
+                params.light_color, params.ambient_intensity)
         return _GBuffer(hdr=hdr, covered=covered, z=z, prim_id=prim_id,
                         rays=rays, count=instances.count, n_work=n_work,
                         shadow_overflow=sh.overflow)
@@ -776,8 +800,9 @@ class Renderer:
         parts, wtc, shear, instances, geom = self._light_parts(
             params, camera_pos, scene_wa)
         setup, n_inst, work = self._bin(parts, wtc, res, res)
-        return (raster_cuda.pack_vis(setup, n_inst), work, wtc, shear,
-                instances, geom)
+        with span("Setup"):
+            vis = raster_cuda.pack_vis(setup, n_inst)
+        return vis, work, wtc, shear, instances, geom
 
     def _light_parts(self, params: FrameParams, camera_pos=None,
                      scene_wa=None):
@@ -789,10 +814,13 @@ class Renderer:
         wtc, kx, kz, span_x, span_z = shadow.sun_shear_matrices(
             params.light_direction, float(ts.world_size), params.max_height,
             cfg.shadow_resolution)
-        instances, sel_eye, sel_ranges = self._light_select(params, wtc,
-                                                            camera_pos)
-        geom = vertex.vertex_geometry(ts, instances, sel_eye, self.heightmap,
-                                      params.max_height, sel_ranges)
+        with span("Select"):
+            instances, sel_eye, sel_ranges = self._light_select(
+                params, wtc, camera_pos)
+        with span("Vertex"):
+            geom = vertex.vertex_geometry(ts, instances, sel_eye,
+                                          self.heightmap, params.max_height,
+                                          sel_ranges)
 
         def no_attrs(w):
             return w.new_zeros(w.shape[:-1] + (0,))
@@ -822,14 +850,17 @@ class Renderer:
         if self.raster_backend == "xla":
             parts, wtc, shear, instances, geom = self._light_parts(
                 params, camera_pos, scene_wa)
-            z = raster.rasterize_xla(self._setup(parts, wtc, res, res), res,
-                                     res)[0]
+            with span("Setup"):
+                setup = self._setup(parts, wtc, res, res)
+            with span("Raster"):
+                z = raster.rasterize_xla(setup, res, res)[0]
             overflow = (instances.count > self.max_active).to(torch.int32)
         else:
             vis, work, wtc, shear, instances, geom = self._light_pass_inputs(
                 params, camera_pos, scene_wa)
-            z = raster_cuda.rasterize_depth(vis, work, res, res,
-                                            tile=self.config.raster.tile_w)
+            with span("Raster"):
+                z = raster_cuda.rasterize_depth(
+                    vis, work, res, res, tile=self.config.raster.tile_w)
             overflow = ((work.num_items > self.max_work)
                         | (instances.count > self.max_active)).to(torch.int32)
         out = (z, wtc, shadow._SHEAR_FAR - 1.0, overflow, shear)
@@ -898,13 +929,15 @@ class Renderer:
         cell = None
         if (cfg.shadow_select == "main" and cfg.shadow_eye_quant > 0.0
                 and camera_pos is not None):
-            cell = tuple(torch.floor(math3d.div_rn(
-                camera_pos.to(torch.float32), cfg.shadow_eye_quant))
-                .long().tolist())
-        key = (params.light_direction.detach().cpu().numpy().tobytes(),
-               params.max_height.detach().cpu().numpy().tobytes(),
+            cell = tuple(sync_copy(torch.floor(math3d.div_rn(
+                camera_pos.to(torch.float32), cfg.shadow_eye_quant)).long(),
+                "cpu").tolist())
+        key = (sync_copy(params.light_direction.detach(), "cpu").numpy()
+               .tobytes(),
+               sync_copy(params.max_height.detach(), "cpu").numpy().tobytes(),
                None if self.scene_transforms is None
-               else self.scene_transforms.detach().cpu().numpy().tobytes(),
+               else sync_copy(self.scene_transforms.detach(), "cpu").numpy()
+               .tobytes(),
                cell)
         cached = self._shadow_prepass_cache
         if cached is None or cached[0] != key:

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from vrenderer_tpu_torch.config import TerrainSettings
+from vrenderer_tpu_torch.profiler import span
 from vrenderer_tpu_torch.utils import math3d
 
 
@@ -137,7 +138,8 @@ def _compact(mask: torch.Tensor, cap: int, *fields: torch.Tensor):
     holds, truncated to ``cap`` and zero-padded to exactly ``cap`` rows."""
     out = []
     for x in fields:
-        kept = x[mask][:cap]
+        with span("Sync"):              # the count goes to the host
+            kept = x[mask][:cap]
         pad = torch.zeros((cap - kept.shape[0],) + kept.shape[1:],
                           dtype=x.dtype, device=x.device)
         out.append(torch.cat([kept, pad]))

@@ -1,5 +1,7 @@
 """ctypes bindings for the native runtime library (``native/vrt_native.cpp``):
-the scoped-event profiler ring and the fBm heightmap generator.
+its clock and the fBm heightmap generator. (The library's scoped-event
+ring serves the JAX package; the port's frame spans are recorded by
+``profiler.FrameProfiler`` alone.)
 
 On first use, ``load()`` compiles the source with the ``native/Makefile``
 line (``g++ -O3 -std=c++17 -fPIC -Wall -shared``) into
@@ -26,7 +28,6 @@ SOURCE = _PKG.parent / "native" / "vrt_native.cpp"
 BUILD_DIR = _PKG / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-shared")
 LIB_NAME = "libvrt_native.so"
-NAME_LEN = 64      # kMaxNameLen of the event ring
 
 _loaded: ctypes.CDLL | None = None
 
@@ -72,22 +73,6 @@ def load() -> ctypes.CDLL:
     if _loaded is None:
         lib = ctypes.CDLL(str(build()))
         i, u32, u64 = ctypes.c_int, ctypes.c_uint32, ctypes.c_uint64
-        lib.vrt_profiler_init.argtypes = [i]
-        lib.vrt_profiler_init.restype = i
-        lib.vrt_profiler_new_frame.argtypes = []
-        lib.vrt_profiler_new_frame.restype = None
-        lib.vrt_profiler_begin.argtypes = [ctypes.c_char_p]
-        lib.vrt_profiler_begin.restype = i
-        lib.vrt_profiler_end.argtypes = []
-        lib.vrt_profiler_end.restype = None
-        lib.vrt_profiler_count.argtypes = []
-        lib.vrt_profiler_count.restype = i
-        lib.vrt_profiler_dump.argtypes = [
-            ctypes.POINTER(u64), ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_char_p]
-        lib.vrt_profiler_dump.restype = None
-        lib.vrt_profiler_reset.argtypes = []
-        lib.vrt_profiler_reset.restype = None
         lib.vrt_now_ns.argtypes = []
         lib.vrt_now_ns.restype = u64
         lib.vrt_fbm_heightmap.argtypes = [
@@ -95,65 +80,6 @@ def load() -> ctypes.CDLL:
         lib.vrt_fbm_heightmap.restype = None
         _loaded = lib
     return _loaded
-
-
-class NativeProfiler:
-    """The native scoped-event ring (the reference's CPUProfiler,
-    Profiler.cpp:409-490). The ring is one per process: a new profiler
-    clears it."""
-
-    def __init__(self, capacity: int = 65536):
-        if capacity <= 0:
-            raise ValueError(f"capacity must be positive, got {capacity}")
-        self.lib = load()
-        self.lib.vrt_profiler_init(capacity)
-        self.capacity = capacity
-
-    def new_frame(self):
-        self.lib.vrt_profiler_new_frame()
-
-    def begin(self, name: str):
-        self.lib.vrt_profiler_begin(name.encode())
-
-    def end(self):
-        self.lib.vrt_profiler_end()
-
-    def scope(self, name: str):
-        prof = self
-
-        class _Scope:
-            def __enter__(self):
-                prof.begin(name)
-
-            def __exit__(self, *exc):
-                prof.end()
-
-        return _Scope()
-
-    def events(self):
-        """The recorded events as dicts: name, begin_ns, end_ns, depth,
-        frame."""
-        n = self.lib.vrt_profiler_count()
-        if n == 0:
-            return []
-        times = np.zeros(2 * n, np.uint64)
-        meta = np.zeros(2 * n, np.int32)
-        names = ctypes.create_string_buffer(n * NAME_LEN)
-        self.lib.vrt_profiler_dump(
-            times.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
-            meta.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), names)
-        out = []
-        for k in range(n):
-            raw = names.raw[k * NAME_LEN:(k + 1) * NAME_LEN]
-            out.append({"name": raw.split(b"\0", 1)[0].decode(),
-                        "begin_ns": int(times[2 * k]),
-                        "end_ns": int(times[2 * k + 1]),
-                        "depth": int(meta[2 * k]),
-                        "frame": int(meta[2 * k + 1])})
-        return out
-
-    def reset(self):
-        self.lib.vrt_profiler_reset()
 
 
 def fbm_heightmap(resolution: int, seed: int = 1234, octaves: int = 8,
