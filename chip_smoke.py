@@ -103,7 +103,8 @@ Phases, each printing one line and raising on failure:
     frame finite, covered in (0, 1), overflow mask 0 (work items printed
     against max_work); B1's launches are the frames plus the mesh-top
     fields (one a frame with a scene, one for the flythrough's cache), B2's
-    the shadow-depth; the frame after reload is bit-identical to the one
+    the shadow-depth, the selection kernel's one a frame without lock-view,
+    one for lock and one for shadow-depth; the frame after reload is bit-identical to the one
     before; the lock frame equals ``render_locked`` with ``select``'s
     instances. Then B1 against its plain version at two editor cameras and
     on the mesh-top field's compact triangles (one instance), B2 at the
@@ -151,7 +152,8 @@ Phases, each printing one line and raising on failure:
     by op (``rays_steps``), in one ``device bits`` line, each count 0; the
     launches (B1 a frame, plus the horizon prepass's
     mesh-top field; B2 a frame in mapref and map, once in mapsnap and
-    mapwalk per cell crossing plus the fill); the cached frames (the first,
+    mapwalk per cell crossing plus the fill; the selection kernel one a
+    frame and one a light raster); the cached frames (the first,
     the last and, for the quantized eye, the first after a crossing)
     bit-identical to inline ``Renderer.render`` frames; ``camera_stats``
     (CUDA-event frame times, spread, slowest cameras, correlations). Then
@@ -179,10 +181,23 @@ Phases, each printing one line and raising on failure:
     the horizon frame's camera 13, by scalar and by float4 loads. Every case
     bit for bit equal to its plain version; times, rates and bounds with the
     card's name; SASS instruction counts of P1 (FFMA against FMUL and FADD)
-    and P3 (the shared atomics); a ``probes`` JSON line.
+    and P3 (the shared atomics); a ``probes`` JSON line;
+17. selection kernel (run after phase 2): ``vrt_select``
+    (``quadtree.select_cuda``, csrc/select.cu, one launch a selection)
+    against the plain sweep it replaces on the card
+    (``select_all_surfaces_plain``) at cameras 0 and 13 of the horizon
+    and the map configuration, the main view's selection and the map's
+    light view's: every field bit for bit equal, the kernel's call made
+    under ``torch.cuda.set_sync_debug_mode("error")``; CUDA-event times of
+    both (the plain sweep unqueued), the host ms a call of each, the
+    device's launches a call of each (from a ``torch.profiler`` trace;
+    the kernel's must be 1) and the bound (its outputs' bytes).
 
-Each path's kernel launches are counted from 0 just before it runs. Then
-one JSON line with each kernel's launches (on its path: B1 and B2 on the
+Each path's kernel launches, the selection kernel's among them, are
+counted from 0 just before it runs and checked against the path's own
+count: one selection a main view and one a light pass (a map frame
+selects twice), none for a lock-view frame. Then one JSON line with each
+kernel's launches (on its path: B1, B2 and the selection kernel on the
 map path, B3a and B3b on the two-phase path; B1, B2 and B3a carry each
 input's busiest region's pairs (``busiest_region_pairs``), the blocks its
 work was split across (``busiest_region_blocks``), the binning launches'
@@ -194,7 +209,10 @@ editor path's launches and numbers under ``editor_launches`` and
 ``workloads_launches`` and ``workloads``, and each kernel the sharded
 path's launches and its band numbers under ``sharded_launches`` and
 ``sharded``; P1-P4 the probes' launches, their reported case under
-``case`` and every case under ``cases``), and its error, times and
+``case`` and every case under ``cases``; the selection kernel the
+editor, workload and sharded paths' launches like B1 and B2, and its
+phase 17 numbers at each view and camera under ``cameras``; phase 17's
+own calls are in no count), and its error, times and
 bound at camera 13, with each camera's under ``cameras`` (B1's at the
 map path's inputs, B3a's and B3b's at the horizon path's), and for B1, B2
 and B3a the pairs their block test evaluates (``evaluated_pairs``) beside
@@ -833,32 +851,33 @@ def phase_golden(device) -> None:
 
 
 def reset_launches() -> None:
-    from vrenderer_tpu_torch.ops import raster_cuda
-
     for fn in launch_counted():
         fn.launches = 0
 
 
 def launch_counted():
     from vrenderer_tpu_torch.ops import raster_cuda
+    from vrenderer_tpu_torch.terrain import quadtree
 
     return (raster_cuda.rasterize, raster_cuda.rasterize_depth,
             raster_cuda.rasterize_zid, raster_cuda.filter_work_to_winners,
-            raster_cuda.rasterize_resolve)
+            raster_cuda.rasterize_resolve, quadtree.select_cuda)
 
 
 def read_launches() -> dict:
     return dict(zip(("raster", "raster_depth", "raster_zid",
-                     "raster_filter", "raster_resolve"),
+                     "raster_filter", "raster_resolve", "select"),
                     (fn.launches for fn in launch_counted())))
 
 
 def launches(raster=0, raster_depth=0, raster_zid=0, raster_filter=0,
-             raster_resolve=0):
-    """The expected counts of ``read_launches``."""
+             raster_resolve=0, select=0):
+    """The expected counts of ``read_launches``. ``select``: one a main
+    view's selection and one a light pass's (a map frame's inline light
+    pass selects again)."""
     return {"raster": raster, "raster_depth": raster_depth,
             "raster_zid": raster_zid, "raster_filter": raster_filter,
-            "raster_resolve": raster_resolve}
+            "raster_resolve": raster_resolve, "select": select}
 
 
 def phase_flythrough(name, r, params, cams, prepass=None, frames=None,
@@ -1080,7 +1099,8 @@ def phase_two_phase_path(device, params, cams, single) -> list:
     ms, launched = phase_flythrough("two-phase horizon", r, params, cams,
                                     prepass, keep=outs)
     n = cams.eye.shape[0] + 1           # the frames and the warm-up frame
-    if launched != launches(raster_zid=n, raster_filter=n, raster_resolve=n):
+    if launched != launches(raster_zid=n, raster_filter=n, raster_resolve=n,
+                            select=n):
         raise RuntimeError(f"two-phase path launches {launched}")
     for i, (a, b) in enumerate(zip(outs, single)):
         for f in ("ldr", "depth", "prim_id", "overflow_mask"):
@@ -1103,7 +1123,8 @@ def phase_mode_frames(device, params, cams) -> None:
         prepass = r.cached_horizon_prepass(params)
         ms, launched = phase_flythrough(f"{name} horizon", r, params, cams,
                                         prepass, frames=MODE_CAMERAS)
-        if launched != launches(raster=len(MODE_CAMERAS) + 1):
+        n = len(MODE_CAMERAS) + 1
+        if launched != launches(raster=n, select=n):
             raise RuntimeError(f"{name} frames launches {launched}")
         log(f"{name} frame times (cameras {MODE_CAMERAS}): "
             + ", ".join(f"{m:.3f} ms" for m in ms))
@@ -1371,8 +1392,11 @@ def phase_map_golden(device) -> None:
         f"{maps[0][0]:.6f}/{maps[1][0]:.6f}, |dz| <= 1e-4 on "
         f"{maps[0][1]:.4f}/{maps[1][1]:.4f} (median {maps[0][2]:.3g}/"
         f"{maps[1][2]:.3g}); launches {launched}")
-    if launched != launches(raster=1, raster_depth=3):
-        raise RuntimeError("the inline map frame did not run both kernels")
+    # selections: the inline frame's light and main views, the light view
+    # of light_raster_inputs and of render_shadow_depth
+    if launched != launches(raster=1, raster_depth=3, select=4):
+        raise RuntimeError(f"the inline map frame did not run both kernels "
+                           f"and the selections: launches {launched}")
     if not (same.mean() >= 0.999 and d[same].max() < 5e-3
             and d.mean() < 5e-4 and (prim >= n_terrain).sum() > 200):
         raise RuntimeError("map golden frame outside its bounds")
@@ -1400,7 +1424,9 @@ def phase_map_cached(device, params, cams) -> None:
         cached.append(out)
     torch.cuda.synchronize()
     launched = read_launches()
-    if launched != launches(raster=CACHED_CAMERAS, raster_depth=1):
+    # the light-eye selection once, a main selection a frame
+    if launched != launches(raster=CACHED_CAMERAS, raster_depth=1,
+                            select=CACHED_CAMERAS + 1):
         raise RuntimeError(f"cached loop launches {launched}")
     for i, out in enumerate(cached):
         inline = r.render(cams.frame(i), params)
@@ -1585,7 +1611,7 @@ def phase_app(device, card: str) -> None:
     stats2 = frame_stats(outs, "app run 2")
     del outs
     hist = np.asarray(app.adapt_history)
-    if launched != launches(raster=APP_FRAMES):
+    if launched != launches(raster=APP_FRAMES, select=APP_FRAMES):
         raise RuntimeError(f"app run 2 launches {launched}")
     if not (hist.shape == (APP_FRAMES,) and np.isfinite(hist).all()
             and abs(hist[-1] - 0.5) > 1e-3):
@@ -1616,7 +1642,7 @@ def phase_app(device, card: str) -> None:
     outs, launched, sec, ms3, wait3 = app_run(app, "app run 3",
                                               num_frames=APP_FRAMES,
                                               adapt=False)
-    if launched != launches(raster=APP_FRAMES):
+    if launched != launches(raster=APP_FRAMES, select=APP_FRAMES):
         raise RuntimeError(f"app run 3 launches {launched}")
     for i, o in enumerate(outs):
         ref = r.render(cams.frame(i), app.params, shadow_prepass=prepass)
@@ -1740,7 +1766,7 @@ def _phase_editor(device, card: str, tmp: str) -> tuple:
 
     ed._render = timed_render
     reset_launches()
-    frames, ms, b1_expect, b2_expect = [], [], 0, 0
+    frames, ms, b1_expect, b2_expect, sel_expect = [], [], 0, 0, 0
     lock_state = reload_pair = None
     for line in EDITOR_SCRIPT:
         cmd = line.format(glb=glb, tmp=tmp)
@@ -1758,14 +1784,19 @@ def _phase_editor(device, card: str, tmp: str) -> tuple:
             frames.append((len(frames), ed.camera, out))
             ms.append((start, end))
             b1_expect += 1 + scene     # the main raster and the mesh-top field
+            sel_expect += ed.locked_instances is None
             if ed.locked_instances is not None:
                 lock_state = (r, ed.camera, ed.app.params,
                               ed.locked_instances, out,
                               r.scene_transforms.clone())
         elif cmd.startswith("fly"):
             b1_expect += int(cmd.split()[1]) + scene    # + its prepass cache
+            sel_expect += int(cmd.split()[1])
         elif cmd.startswith("shadow-depth"):
             b2_expect += 1
+            sel_expect += 1            # the light view's selection
+        elif cmd == "lock":
+            sel_expect += 1            # the frozen selection
         elif cmd == "reload":
             reload_pair = frames[-1][2]
         elif cmd.startswith("step"):
@@ -1775,9 +1806,11 @@ def _phase_editor(device, card: str, tmp: str) -> tuple:
     launched = read_launches()
     run_s = time.perf_counter() - t0
 
-    if launched != launches(raster=b1_expect, raster_depth=b2_expect):
+    if launched != launches(raster=b1_expect, raster_depth=b2_expect,
+                            select=sel_expect):
         raise RuntimeError(f"editor launches {launched}, expected B1 "
-                           f"{b1_expect}, B2 {b2_expect}")
+                           f"{b1_expect}, B2 {b2_expect}, selections "
+                           f"{sel_expect}")
     for i, _, out in frames:
         fin = bool(torch.isfinite(out.ldr).all() & torch.isfinite(out.hdr)
                    .all())
@@ -1985,7 +2018,7 @@ def phase_sharded(device, card: str, params, cams) -> dict:
     r.render(cams.frame(idx[0]), params)
     frames, ovf, _, ms["mesh_1x1"], runs["a"] = sharded_run(
         "(a) own mesh", r, params, sub_cameras(cams, idx), mesh1)
-    if runs["a"] != launches(raster=2 * len(idx)):
+    if runs["a"] != launches(raster=2 * len(idx), select=len(idx)):
         raise RuntimeError(f"sharded (a) launches {runs['a']}")
     singles, _, ms["single"] = single_frames(r, params, cams, idx)
     for k, (f, o, s) in enumerate(zip(frames, ovf, singles)):
@@ -2001,7 +2034,8 @@ def phase_sharded(device, card: str, params, cams) -> dict:
     frames, _, adapted, ms["mesh_2x3_adapt"], runs["b"] = sharded_run(
         "(b) adapting", r, params, sub_cameras(cams, idx), mesh23,
         adapted_lum=0.5, dt=SHARD_DT)
-    if runs["b"] != launches(raster=2 * len(idx) * SHARD_BANDS):
+    if runs["b"] != launches(raster=2 * len(idx) * SHARD_BANDS,
+                             select=len(idx) * SHARD_BANDS):
         raise RuntimeError(f"sharded (b) launches {runs['b']}")
     half = len(idx) // 2
     chain, lums = [], []
@@ -2031,7 +2065,7 @@ def phase_sharded(device, card: str, params, cams) -> dict:
                               shadow_mode="map", shadow_resolution=SHADOW_RES)
     frames, _, _, ms["map_mesh_1x3"], runs["c"] = sharded_run(
         "(c) map", rm, params, few, mesh3)
-    if runs["c"] != launches(raster=n, raster_depth=n):
+    if runs["c"] != launches(raster=n, raster_depth=n, select=2 * n):
         raise RuntimeError(f"sharded (c) launches {runs['c']}")
     singles, _, ms["map_single"] = single_frames(rm, params, cams, idx)
     shares["c"] = band_share("(c)", frames, singles)
@@ -2047,7 +2081,7 @@ def phase_sharded(device, card: str, params, cams) -> dict:
     two, _, _, ms["mesh_1x3_two_phase"], runs["d"] = sharded_run(
         "(d) two-phase", r2, params, few, mesh3)
     if runs["d"] != launches(raster=n, raster_zid=n, raster_filter=n,
-                             raster_resolve=n):
+                             raster_resolve=n, select=n):
         raise RuntimeError(f"sharded (d) launches {runs['d']}")
     if not torch.equal(two, one):
         raise RuntimeError("sharded (d): two-phase banded frames differ from "
@@ -2170,8 +2204,9 @@ def workload_run(name: str, mode: str, quant, shadow_res, device,
     b2 = {"map": n, "mapref": n}.get(mode, 0)
     if quant_mode:
         b2 = crossings + 1
+    # a main selection a frame and a light selection a light raster
     want = launches(raster=n + (0 if mode in workloads.MAP_MODES else 1),
-                    raster_depth=b2)
+                    raster_depth=b2, select=n + b2)
     if launched != want or steady.light_rasters != b2:
         raise RuntimeError(f"workload {name}: launches {launched}, light "
                            f"rasters {steady.light_rasters}, expected {want}")
@@ -2938,6 +2973,102 @@ def phase_probes(device, card: str) -> list:
     return entries
 
 
+def device_activities(fn) -> int:
+    """The device's activities (kernels, copies, sets) of one call of
+    ``fn``, after a warm-up call, from a ``torch.profiler`` trace of the
+    device alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if str(e.device_type()).endswith("CUDA")
+               and e.duration_ns() > 0)
+
+
+def phase_select(device, card: str) -> dict:
+    """Phase 17 (module docstring). Returns the selection kernel's entry
+    of the ``kernels`` line."""
+    import torch
+
+    from vrenderer_tpu_torch.ops import shadow
+    from vrenderer_tpu_torch.probes.common import bits_equal
+    from vrenderer_tpu_torch.terrain import quadtree
+    from vrenderer_tpu_torch.utils import math3d
+
+    t0 = time.perf_counter()
+    per_cam, texts = {}, []
+    for cfg_name, kw in (("horizon", {}), ("map", {
+            "max_active": MAP_MAX_ACTIVE, "shadow_mode": "map",
+            "shadow_resolution": SHADOW_RES})):
+        r, params, cams = bench_renderer(device, **kw)
+        ts = r.config.terrain
+        wtc_l = shadow.sun_shear_matrices(
+            params.light_direction, float(ts.world_size), params.max_height,
+            SHADOW_RES)[0]
+        for i in KERNEL_CAMERAS:
+            vc = r._view(cams.frame(i))
+            views = [("main", math3d.frustum_planes(vc["world_to_clip"]))]
+            if cfg_name == "map":
+                views.append(("light", math3d.frustum_planes(wtc_l)))
+            for view, planes in views:
+                args = (ts, vc["camera_pos"], planes, r.lod_ranges)
+
+                def kernel():
+                    return quadtree.select_all_surfaces(*args)
+
+                def plain():
+                    return quadtree.select_all_surfaces_plain(*args)
+
+                with no_host_sync():
+                    got = kernel()
+                want = plain()
+                for f in got._fields:
+                    if not bits_equal(getattr(got, f), getattr(want, f)):
+                        raise RuntimeError(f"vrt_select {cfg_name} {view} "
+                                           f"camera {i}: {f} differs from "
+                                           f"the plain sweep")
+                n = int(got.count)
+                # the outputs: instance rows, count, the debug masks
+                levels, w = ts.num_lods + 1, ts.select_window
+                out_bytes = (ts.max_instances * (12 + 12 + 4 + 1) + 4
+                             + levels * (2 * w * w + 8))
+                d = {"count": n, "ms": cuda_ms(kernel, 20),
+                     "plain_ms": cuda_ms(plain, 3, queued=False),
+                     **bound(out_bytes, 0),
+                     "host_ms": host_ms(kernel),
+                     "plain_host_ms": host_ms(plain, 5),
+                     "device_launches": device_activities(kernel),
+                     "plain_device_launches": device_activities(plain)}
+                if d["device_launches"] != 1:
+                    raise RuntimeError(f"vrt_select {cfg_name} {view} camera "
+                                       f"{i}: {d['device_launches']} device "
+                                       f"launches a call, not 1")
+                per_cam[f"{cfg_name}.{view}.{i}"] = d
+                texts.append(
+                    f"{cfg_name} {view} camera {i}: {n} nodes, kernel "
+                    f"{d['ms']:.4f} ms ({d['device_launches']} device "
+                    f"launches, host {d['host_ms']:.4f} ms), plain "
+                    f"{d['plain_ms']:.3f} ms ({d['plain_device_launches']} "
+                    f"device launches, host {d['plain_host_ms']:.3f} ms), "
+                    f"bound {d['bound_ms']:.6f} ms")
+        del r
+    log(f"selection kernel vrt_select ({card}; instances bit for bit equal "
+        f"to the plain sweep, no host sync; CUDA events; "
+        f"{time.perf_counter() - t0:.1f} s): " + "; ".join(texts))
+    top = per_cam[f"horizon.main.{JSON_CAMERA}"]
+    return {"name": "select", "route": "cuda",
+            "source": "vrenderer_tpu_torch/csrc/select.cu",
+            "replaces": "vrenderer_tpu/terrain/quadtree.py:select_nodes "
+                        "(plain JAX, no Pallas kernel)",
+            **top, "camera": JSON_CAMERA, "cameras": per_cam,
+            "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -2974,6 +3105,7 @@ def main() -> int:
                           "tree": str(REPO), "card": card}), flush=True)
         return 0
     log(f"atomics (SASS): {sass_atomics()}")
+    kern_sel = phase_select(device, card)
 
     r, params, cams = bench_renderer(device)
     prepass = r.cached_horizon_prepass(params)
@@ -2985,7 +3117,7 @@ def main() -> int:
     ms, launched = phase_flythrough("horizon", r, params, cams, prepass,
                                     keep=single)
     # 64 frames + the warm-up frame (the prepass was cached before)
-    if launched != launches(raster=65):
+    if launched != launches(raster=65, select=65):
         raise RuntimeError(f"horizon path launches {launched}")
     log(f"horizon frame times ({card}): mean {np.mean(ms):.3f} ms, p50 "
         f"{np.median(ms):.3f} ms, max {np.max(ms):.3f} ms over 64 frames "
@@ -3006,7 +3138,8 @@ def main() -> int:
     kern = phase_kernel("map", rm, params, None, cams)
     phase_map_golden(device)
     map_ms, map_launches = phase_flythrough("map", rm, params, cams)
-    if map_launches != launches(raster=65, raster_depth=65):
+    # the light and the main view's selection a frame
+    if map_launches != launches(raster=65, raster_depth=65, select=130):
         raise RuntimeError(f"map path launches {map_launches}")
     log(f"map frame times ({card}): mean {np.mean(map_ms):.3f} ms, p50 "
         f"{np.median(map_ms):.3f} ms, max {np.max(map_ms):.3f} ms over 64 "
@@ -3052,6 +3185,10 @@ def main() -> int:
          "sharded_launches": sh_launches["raster_resolve"],
          "sharded_filter_launches": sh_launches["raster_filter"],
          "sharded": sh["raster_resolve"]},
+        {**kern_sel, "launches": map_launches["select"],
+         "editor_launches": ed_launches["select"],
+         "sharded_launches": sh_launches["select"],
+         "workloads_launches": wl_launches["select"]},
         *probe_entries,
     ]}))
     print(nvidia_smi())

@@ -248,7 +248,7 @@ class App:
             timer.measure(
                 "TerrainPass::UpdateTransforms",
                 lambda: quadtree.select_all_surfaces(
-                    ts, eye, math3d.frustum_planes(wtc), ts.lod_ranges(dev)))
+                    ts, eye, math3d.frustum_planes(wtc), r.lod_ranges))
             if scene_wa is not None:
                 timer.measure("Scene Refresh", lambda: r._scene_blocks(
                     r.scene_transforms, params.max_height))

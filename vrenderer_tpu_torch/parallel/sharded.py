@@ -21,9 +21,9 @@ is a whole-frame statistic, adapts to the sum of the bands' partial
 the JAX package sums over the mesh axis (``psum``).
 
 One process drives every device from one thread. The frame's host
-synchronisations (the selection's compaction, the work list's
-``nonzero``) run once a band, so bands on several cards overlap only
-between them.
+synchronisations (on a CUDA device the work list's ``nonzero``; the
+selection syncs nothing there, only on the CPU) run once a band, so
+bands on several cards overlap only between them.
 """
 
 from __future__ import annotations

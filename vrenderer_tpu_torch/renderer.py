@@ -203,6 +203,9 @@ class Renderer:
         self.max_active = min(max_active or config.terrain.max_instances,
                               config.terrain.max_instances)
         self._nrm_field = vertex.normal_fields(heightmap)
+        # made on the host once (ROADMAP C), for selection and the vertex
+        # stage of every frame
+        self.lod_ranges = config.terrain.lod_ranges(self.device)
         _, self.tri_indices = gridmod.make_grid(config.terrain.grid_size,
                                                 device=self.device)
         self._horizon_prepass_cache = None
@@ -404,7 +407,7 @@ class Renderer:
             instances, vout = sh.instances, sh.vout
         else:
             with span("Select"):
-                lr = ts.lod_ranges(dev)
+                lr = self.lod_ranges
                 if lock_instances is None:
                     lock_instances = quadtree.select_all_surfaces(
                         ts, vc["camera_pos"], math3d.frustum_planes(wtc), lr)
@@ -613,7 +616,7 @@ class Renderer:
         ts = self.config.terrain
         inst_m = self._clip_active(quadtree.select_all_surfaces(
             ts, vc["camera_pos"], math3d.frustum_planes(vc["world_to_clip"]),
-            ts.lod_ranges(self.device)))
+            self.lod_ranges))
         same = ((light.position[:, None, 0] == inst_m.position[None, :, 0])
                 & (light.position[:, None, 2] == inst_m.position[None, :, 2])
                 & (light.lod[:, None] == inst_m.lod[None, :])
@@ -781,7 +784,7 @@ class Renderer:
             q = torch.tensor(cfg.shadow_eye_quant, dtype=torch.float32,
                              device=dev)
             sel_eye = (torch.floor(sel_eye / q) + 0.5) * q
-        sel_ranges = ts.lod_ranges(dev)
+        sel_ranges = self.lod_ranges
         if cfg.shadow_select == "light":
             sel_eye = (-math3d.normalize_rn(params.light_direction)
                        * float(ts.world_size))
@@ -983,7 +986,7 @@ class Renderer:
         planes = math3d.frustum_planes(vc["world_to_clip"])
         with torch.no_grad():
             return quadtree.select_all_surfaces(ts, vc["camera_pos"], planes,
-                                                ts.lod_ranges(self.device))
+                                                self.lod_ranges)
 
     def render_locked(self, camera: Camera, params: FrameParams,
                       instances: quadtree.SelectedInstances) -> FrameOutput:
@@ -1004,7 +1007,7 @@ class Renderer:
             return quadtree.select_nodes(
                 ts, vc["camera_pos"],
                 math3d.frustum_planes(vc["world_to_clip"]),
-                ts.lod_ranges(self.device))[1]
+                self.lod_ranges)[1]
 
     def reload_pipelines(self):
         """The shader hot-reload (m_ShaderReoladRequested, Renderer.cpp:

@@ -7,6 +7,14 @@ quadtree debug view (``SelectionDebug``).
 Selected nodes are compacted in level-major, row-major order with an
 order-preserving boolean mask, so instance slot ``i`` holds the same node
 as in the JAX package (prim ids are ``slot * tris_per_instance + t``).
+
+``select_nodes`` and ``select_all_surfaces`` run their plain versions
+(``select_nodes_plain``, ``select_all_surfaces_plain``: the sweep, the CPU
+path and the card's reference) for CPU tensors, and for CUDA tensors
+launch the hand-written kernel ``vrt_select`` of ``csrc/select.cu``
+(``select_cuda``): the whole selection and its compaction in one launch,
+bit-identical to the sweep, with no host synchronisation. The sweep issues
+about 90 small launches a level and syncs once for each compacted field.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from vrenderer_tpu_torch.config import TerrainSettings
+from vrenderer_tpu_torch.ops import _build
 from vrenderer_tpu_torch.profiler import span
 from vrenderer_tpu_torch.utils import math3d
 
@@ -41,11 +50,23 @@ class SelectionDebug(NamedTuple):
 
 
 def select_nodes(settings: TerrainSettings, camera_pos: torch.Tensor,
-                 frustum_planes: torch.Tensor, lod_ranges: torch.Tensor,
-                 surface_location: torch.Tensor | None = None
+                 frustum_planes: torch.Tensor, lod_ranges: torch.Tensor
                  ) -> tuple[SelectedInstances, SelectionDebug]:
-    """CDLOD selection for one quadtree surface (TerrainPass.cpp:176-186):
-    the instances and the debug masks."""
+    """CDLOD selection for one quadtree surface centred at the origin
+    (TerrainPass.cpp:176-186): the instances and the debug masks. CUDA
+    tensors launch ``vrt_select``, CPU tensors run ``select_nodes_plain``
+    (which also takes a surface centred elsewhere)."""
+    if camera_pos.device.type == "cpu":
+        return select_nodes_plain(settings, camera_pos, frustum_planes,
+                                  lod_ranges)
+    return select_cuda(settings, camera_pos, frustum_planes, lod_ranges)
+
+
+def select_nodes_plain(settings: TerrainSettings, camera_pos: torch.Tensor,
+                       frustum_planes: torch.Tensor, lod_ranges: torch.Tensor,
+                       surface_location: torch.Tensor | None = None
+                       ) -> tuple[SelectedInstances, SelectionDebug]:
+    """``select_nodes`` as a sweep of tensor operations, on any device."""
     dev = camera_pos.device
     W = float(settings.surface_size)
     L = settings.num_lods
@@ -183,19 +204,36 @@ def select_all_surfaces(settings: TerrainSettings, camera_pos: torch.Tensor,
                         frustum_planes: torch.Tensor,
                         lod_ranges: torch.Tensor) -> SelectedInstances:
     """Selection over the (world/surface)^2 grid of quadtrees
-    (TerrainPass.cpp:97-110), merged into one instance array."""
+    (TerrainPass.cpp:97-110), merged into one instance array: each
+    surface's rows cut to ``max_instances``, then the merged rows. CUDA
+    tensors launch ``vrt_select`` once for all the surfaces, CPU tensors
+    run ``select_all_surfaces_plain``."""
+    if camera_pos.device.type == "cpu":
+        return select_all_surfaces_plain(settings, camera_pos,
+                                         frustum_planes, lod_ranges)
+    return select_cuda(settings, camera_pos, frustum_planes, lod_ranges,
+                       per_side=settings.num_surfaces_per_side)[0]
+
+
+def select_all_surfaces_plain(settings: TerrainSettings,
+                              camera_pos: torch.Tensor,
+                              frustum_planes: torch.Tensor,
+                              lod_ranges: torch.Tensor) -> SelectedInstances:
+    """``select_all_surfaces`` as a sweep of tensor operations a surface
+    (``select_nodes_plain``), on any device."""
     nps = settings.num_surfaces_per_side
     if nps == 1:
-        return select_nodes(settings, camera_pos, frustum_planes,
-                            lod_ranges)[0]
+        return select_nodes_plain(settings, camera_pos, frustum_planes,
+                                  lod_ranges)[0]
     results = []
     for i in range(nps * nps):
         x = (-0.5 * (nps - 1) + i % nps) * settings.surface_size
         z = (-0.5 * (nps - 1) + i // nps) * settings.surface_size
         loc = torch.tensor([x, 0.0, z], dtype=torch.float32,
                            device=camera_pos.device)
-        results.append(select_nodes(settings, camera_pos, frustum_planes,
-                                    lod_ranges, surface_location=loc)[0])
+        results.append(select_nodes_plain(settings, camera_pos,
+                                          frustum_planes, lod_ranges,
+                                          surface_location=loc)[0])
     cap = settings.max_instances
     valid = torch.cat([r.valid for r in results])
     count = sum(r.count for r in results)
@@ -205,3 +243,68 @@ def select_all_surfaces(settings: TerrainSettings, camera_pos: torch.Tensor,
         torch.cat([r.lod for r in results]))
     out_valid = torch.arange(cap, device=valid.device) < torch.clamp(count, max=cap)
     return SelectedInstances(position, extents, lod, out_valid, count)
+
+
+MAX_SELECT_THREADS = 1024   # vrt_select's one block: a thread a window node
+
+
+def _check_select_input(name: str, x: torch.Tensor, shape: tuple,
+                        device: torch.device) -> torch.Tensor:
+    if tuple(x.shape) != shape:
+        raise ValueError(f"select_cuda: {name} has shape {tuple(x.shape)}, "
+                         f"needs {shape}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"select_cuda: {name} is {x.dtype}, needs "
+                         f"torch.float32")
+    if x.device != device:
+        raise ValueError(f"select_cuda: {name} is on {x.device}, the camera "
+                         f"on {device}")
+    return x.contiguous()
+
+
+def select_cuda(settings: TerrainSettings, camera_pos: torch.Tensor,
+                frustum_planes: torch.Tensor, lod_ranges: torch.Tensor,
+                per_side: int = 1
+                ) -> tuple[SelectedInstances, SelectionDebug]:
+    """One launch of the kernel ``vrt_select`` on the camera's CUDA device:
+    the selection of the ``per_side`` x ``per_side`` surfaces around the
+    origin (``select_all_surfaces``' grid) and the first surface's debug
+    masks, bit-identical to ``select_nodes_plain`` /
+    ``select_all_surfaces_plain``. Reads no value on the host. Inputs:
+    ``camera_pos`` (3,), ``frustum_planes`` (6, 4) and ``lod_ranges``
+    (max_lods,), float32 on one CUDA device."""
+    w = settings.select_window
+    if w * w > MAX_SELECT_THREADS:
+        raise ValueError(
+            f"select_cuda: select_window {w} needs {w * w} threads, one a "
+            f"node of the {w}x{w} window; the kernel's block takes at most "
+            f"{MAX_SELECT_THREADS}")
+    dev = camera_pos.device
+    cam = _check_select_input("camera_pos", camera_pos, (3,), dev)
+    planes = _check_select_input("frustum_planes", frustum_planes, (6, 4), dev)
+    ranges = _check_select_input("lod_ranges", lod_ranges,
+                                 (settings.max_lods,), dev)
+    if dev.type != "cuda":
+        raise ValueError(f"select_cuda: the kernel runs on a CUDA device; "
+                         f"the inputs are on {dev}")
+    cap = settings.max_instances
+    levels = settings.num_lods + 1
+    position = torch.empty((cap, 3), dtype=torch.float32, device=dev)
+    extents = torch.empty((cap, 3), dtype=torch.float32, device=dev)
+    lod = torch.empty((cap,), dtype=torch.int32, device=dev)
+    valid = torch.empty((cap,), dtype=torch.bool, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    selected = torch.empty((levels, w, w), dtype=torch.bool, device=dev)
+    culled = torch.empty((levels, w, w), dtype=torch.bool, device=dev)
+    origin = torch.empty((levels, 2), dtype=torch.int32, device=dev)
+    _build.launch("vrt_select", dev, cam.data_ptr(), planes.data_ptr(),
+                  ranges.data_ptr(), per_side, settings.surface_size, settings.num_lods, w, cap,
+                  position.data_ptr(), extents.data_ptr(), lod.data_ptr(),
+                  valid.data_ptr(), count.data_ptr(), selected.data_ptr(),
+                  culled.data_ptr(), origin.data_ptr())
+    select_cuda.launches += 1
+    return (SelectedInstances(position, extents, lod, valid, count),
+            SelectionDebug(selected, culled, origin))
+
+
+select_cuda.launches = 0
