@@ -1,8 +1,10 @@
-"""Camera pose, per-view constants and the scripted 64-camera flythrough.
+"""Camera pose, per-view constants and the camera paths of the traffic.
 
 Frozen copy of ``vrenderer_tpu_torch.camera`` (``Camera``,
 ``make_view_constants``, ``flythrough``) as it stood when the benchmark
-was written.
+was written, and the JAX package's bench's three other paths (bench.py:
+159-228), written from what they do: ``ground``, ``walk`` and ``orbit``.
+``path`` picks one by the name a traffic file gives.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from portbench.reference import math3d
@@ -110,3 +113,94 @@ def flythrough(num_frames: int, world_size: float = 2048.0,
                       dtype=torch.float32).expand(eye.shape).contiguous()
     return Camera(eye=eye.to(device), target=target.to(device),
                   up=up.to(device))
+
+
+# the ring and the orbit come round once in this many frames; a pose does
+# not depend on the length of the loop that flies it
+PERIOD = 64
+
+
+def _terrain_eyes(heightmap: torch.Tensor, world_size: float,
+                  max_height: float, points) -> np.ndarray:
+    """Eyes (x, height, z) float32 for ``(x, z, above)`` in float64: the
+    terrain's height at the texel that truncation of (x, z)'s texel
+    coordinates names, times ``max_height``, plus ``above``."""
+    hm = heightmap.detach().cpu().numpy()
+    last = hm.shape[0] - 1
+    rows = []
+    for x, z, above in points:
+        col = int(np.clip((x / world_size + 0.5) * last, 0, last))
+        row = int(np.clip((z / world_size + 0.5) * last, 0, last))
+        rows.append((x, float(hm[row, col]) * max_height + above, z))
+    return np.asarray(rows, np.float32)
+
+
+def _stacked(eye, target, device) -> Camera:
+    eye = torch.as_tensor(eye, dtype=torch.float32)
+    up = torch.tensor([0.0, 1.0, 0.0]).expand(eye.shape).contiguous()
+    return Camera(eye=eye.to(device),
+                  target=torch.as_tensor(target, dtype=torch.float32
+                                         ).to(device),
+                  up=up.to(device))
+
+
+def ground(num_frames: int, heightmap: torch.Tensor, world_size: float,
+           max_height: float = 400.0) -> Camera:
+    """A ring of radius 160 m round the origin, the eye 2.5 m above the
+    terrain, looking 50 m ahead along the ground at 0.6 rad past its own
+    bearing (bench.py's ``ground`` mode)."""
+    ang = [2.0 * np.pi * i / PERIOD for i in range(num_frames)]
+    eye = _terrain_eyes(heightmap, world_size, max_height,
+                        [(160.0 * np.cos(a), 160.0 * np.sin(a), 2.5)
+                         for a in ang])
+    ahead = np.asarray([(np.cos(a + 0.6), np.sin(a + 0.6)) for a in ang],
+                       np.float32) * np.float32(50.0)
+    target = eye + np.stack([ahead[:, 0], np.zeros(num_frames, np.float32),
+                             ahead[:, 1]], axis=-1)
+    return _stacked(eye, target, heightmap.device)
+
+
+def walk(num_frames: int, heightmap: torch.Tensor, world_size: float,
+         max_height: float = 400.0) -> Camera:
+    """A straight walk from (-60, 40), 2 m along x and 0.35 m along z a
+    frame, the eye 2 m above the terrain, looking at the fixed offset
+    (40, -2, 25) (bench.py's ``mapwalk`` mode)."""
+    eye = _terrain_eyes(heightmap, world_size, max_height,
+                        [(-60.0 + 2.0 * i, 40.0 + 0.35 * i, 2.0)
+                         for i in range(num_frames)])
+    target = eye + np.asarray([[40.0, -2.0, 25.0]], np.float32)
+    return _stacked(eye, target, heightmap.device)
+
+
+def orbit(num_frames: int, device=None) -> Camera:
+    """The eye fixed 800 m above the origin, where the four surfaces of a
+    4096 m world meet, the gaze turning round a circle of 60 m on the
+    ground plane (bench.py's ``envelope`` mode). The angles are float32
+    and taken on the host: the card's cos and sin round otherwise."""
+    ang = torch.from_numpy(np.float32(2.0 * np.pi)
+                           * np.arange(num_frames, dtype=np.float32)
+                           / np.float32(PERIOD))
+    eye = torch.tensor([[0.0, 800.0, 0.0]]).repeat(num_frames, 1)
+    target = torch.stack([60.0 * torch.cos(ang), torch.zeros_like(ang),
+                          60.0 * torch.sin(ang)], dim=-1)
+    return _stacked(eye, target, device)
+
+
+PATHS = ("flythrough", "ground", "walk", "orbit")
+
+
+def path(name: str, num_frames: int, heightmap: torch.Tensor,
+         world_size: float, max_height: float = 400.0) -> Camera:
+    """The ``num_frames`` poses of the camera path ``name``, on the
+    heightmap's device."""
+    if name == "flythrough":
+        return flythrough(num_frames, world_size=world_size,
+                          heightmap=heightmap, max_height=max_height)
+    if name == "ground":
+        return ground(num_frames, heightmap, world_size, max_height)
+    if name == "walk":
+        return walk(num_frames, heightmap, world_size, max_height)
+    if name == "orbit":
+        return orbit(num_frames, heightmap.device)
+    raise ValueError(f"unknown camera path {name!r}; one of "
+                     f"{', '.join(PATHS)}")

@@ -83,9 +83,13 @@ def affine_to_homogeneous(m: torch.Tensor) -> torch.Tensor:
 def look_at(eye: torch.Tensor, target: torch.Tensor,
             up: torch.Tensor) -> torch.Tensor:
     """World -> view affine (4, 3), right-handed, camera looks down -Z
-    (donut's FirstPersonCamera::LookAt, Renderer.cpp:97,317)."""
-    fwd = normalize(target - eye)
-    right = normalize(torch.linalg.cross(fwd, up))
+    (donut's FirstPersonCamera::LookAt, Renderer.cpp:97,317). The axes
+    are normalised with ``normalize_rn``, as the program's are: the host's
+    float32 square root is an ulp off at some inputs on some CPUs
+    (AVX-512 builds among them), and selection and every triangle's edges
+    follow these bits."""
+    fwd = normalize_rn(target - eye)
+    right = normalize_rn(torch.linalg.cross(fwd, up))
     vup = torch.linalg.cross(right, fwd)
     lin = torch.stack([right, vup, -fwd], dim=-1)
     tr = -torch.stack([dot(eye, right), dot(eye, vup), dot(eye, -fwd)])

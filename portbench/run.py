@@ -7,14 +7,15 @@ from the root of a checkout, on a machine with an NVIDIA card. A cell of
 ``BENCHMARK.json`` names a configuration (``configs/<name>.json``: the
 terrain, the scene, the shadow mode and its budget) and a traffic mix
 (``traffic/<name>.json``: the frame size, the work budget, the camera
-loop and what the seed varies, ``traffic.py``).
+path and its length, and what the seed varies, ``traffic.py``).
 
 A run builds the inputs (the heightmap and its albedo, from the
 configuration), the program's ``App`` with a ``Renderer`` of the cell's
-budgets, and warms up with one whole loop of
-``App.run_flythrough(cameras)``: all of that is ``setup_s``, from the
-process's start. The window is whole loops, as many as it takes to pass
-``--seconds``, ended by a device synchronisation: ``frame_ms`` is its
+budgets, flying the traffic's camera path (``camera_path``), and warms up
+with one whole loop of ``App.run_flythrough``: all of that is
+``setup_s``, from the process's start. The window is whole loops, as
+many as it takes to pass ``--seconds``, ended by a device
+synchronisation: ``frame_ms`` is its
 wall time over the frames it rendered, ``frame_p95_ms`` the 95th
 percentile of the App profiler's host intervals of those frames. With
 ``--trace 1`` one more whole loop runs under ``torch.profiler``, recording
@@ -54,6 +55,9 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "vrenderer_tpu")
+# the program's poses of each camera path but the App's own flythrough:
+# the JAX bench's mode of ``vrenderer_tpu_torch.workloads.cameras``
+PROGRAM_MODES = {"ground": "ground", "walk": "mapwalk", "orbit": "envelope"}
 DRY_RUN = {"width": 240, "height": 144, "cameras": 4}
 
 
@@ -162,8 +166,7 @@ def build_app(cell, seed: int, hm, albedo, device):
     cfg = cell.frame_config(prog_config)
     if cell.config["scene"] != "boot_cube":
         raise ValueError(f"unknown scene {cell.config['scene']!r}")
-    if cell.traffic["path"] != "flythrough":
-        raise ValueError(f"unknown camera path {cell.traffic['path']!r}")
+    path = camera_path(cell)
     app = App(cfg, heightmap_resolution=int(hm.shape[0]), device=device)
     app.heightmap = hm
     app.albedo = albedo
@@ -173,7 +176,69 @@ def build_app(cell, seed: int, hm, albedo, device):
                             scene=Scene.default(device), device=device)
     app.params = program_params(cell, seed, device)
     app.profiler.history = cell.frames + 1
+    if path != "flythrough":
+        fly_poses(app, program_poses(path, cell.frames, hm,
+                                     float(cfg.terrain.world_size)))
     return app
+
+
+def camera_path(cell) -> str:
+    """The traffic's camera path; a ValueError names the paths there are."""
+    from portbench.reference import camera
+
+    path = cell.traffic["path"]
+    if path not in camera.PATHS:
+        raise ValueError(f"unknown camera path {path!r}; one of "
+                         f"{', '.join(camera.PATHS)}")
+    return path
+
+
+def program_poses(path: str, frames: int, hm, world_size: float):
+    """The program's own first ``frames`` poses of the camera path: the
+    App's flythrough, or the JAX bench's mode of ``workloads.cameras``."""
+    if path == "flythrough":
+        from vrenderer_tpu_torch.camera import flythrough
+
+        return flythrough(frames, world_size=world_size, heightmap=hm,
+                          max_height=400.0)
+    from vrenderer_tpu_torch import workloads
+    from vrenderer_tpu_torch.camera import Camera
+
+    poses = workloads.cameras(PROGRAM_MODES[path], hm, world_size)
+    if poses.eye.shape[0] < frames:
+        raise ValueError(f"the {path} path has {poses.eye.shape[0]} poses, "
+                         f"not {frames}")
+    return Camera(*(f[:frames] for f in poses))
+
+
+def fly_poses(app, poses):
+    """Make ``app.run_flythrough(num_frames=n)`` fly the first ``n`` of
+    ``poses``, a path whose poses do not depend on its length.
+
+    ``App.run_flythrough`` flies the scripted flythrough of the App
+    module's ``flythrough`` and takes no poses. For the length of each
+    call that name stands for ``poses``; the App's loop is otherwise its
+    own, and the name is put back when the call returns."""
+    from vrenderer_tpu_torch import app as app_module
+    from vrenderer_tpu_torch.camera import Camera
+
+    loop = app.run_flythrough
+
+    def scripted(num_frames, **_):
+        if num_frames > poses.eye.shape[0]:
+            raise ValueError(f"a loop of {num_frames} frames; the path has "
+                             f"{poses.eye.shape[0]} poses")
+        return Camera(*(f[:num_frames] for f in poses))
+
+    def run_flythrough(**kwargs):
+        own = app_module.flythrough
+        app_module.flythrough = scripted
+        try:
+            return loop(**kwargs)
+        finally:
+            app_module.flythrough = own
+
+    app.run_flythrough = run_flythrough
 
 
 def program_params(cell, seed: int, device):
@@ -191,15 +256,16 @@ def program_params(cell, seed: int, device):
 
 def build_reference(cell, hm, albedo, device):
     """The reference renderer of the cell on the same inputs, and its
-    cameras of a loop."""
+    own poses of a loop of the cell's camera path."""
     from portbench.reference import camera, config, renderer, scene
 
+    path = camera_path(cell)
     cfg = cell.frame_config(config)
     ref = renderer.Renderer(cfg, hm, albedo, int(cell.traffic["max_work"]),
                             int(cell.config["max_active"]),
                             scene.Scene.default(device), device)
-    cams = camera.flythrough(cell.frames, world_size=cfg.terrain.world_size,
-                             heightmap=hm, max_height=400.0)
+    cams = camera.path(path, cell.frames, hm,
+                       float(cfg.terrain.world_size), max_height=400.0)
     return ref, cams
 
 
@@ -362,6 +428,8 @@ def main(argv=None) -> int:
         "program_selected": [sum(r[0] for r in loop) for loop in prog_counts],
         "program_work_items": [sum(r[1] for r in loop)
                                for loop in prog_counts],
+        "program_most_work_items": max(r[1] for loop in prog_counts
+                                       for r in loop),
     }
     numbers = check.count_numbers(prog_counts, ref_counts)
     numbers.update(check.frame_numbers(kept, ref, cams, params,

@@ -16,7 +16,8 @@ from portbench import cell as cellmod
 from portbench import run
 
 ROOT = Path(__file__).resolve().parents[2]
-CELLS = ["horizon.flythrough-1080p", "map.flythrough-1080p"]
+CELLS = ["horizon.flythrough-1080p", "map.flythrough-1080p",
+         "horizon.ground-1080p"]
 
 
 @pytest.mark.parametrize("control", calibrate.CONTROLS)
@@ -54,9 +55,10 @@ def _dry_run(args):
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
+@pytest.mark.parametrize("workload", ["horizon.flythrough-1080p",
+                                      "horizon.ground-1080p"])
 @pytest.mark.parametrize("fault", ["stale_state", "half_batch",
                                    "altered_pixel", "altered_count"])
-def test_each_fault_is_not_correct(fault):
-    line = _dry_run(["-m", "portbench.tests.faults", fault,
-                     "horizon.flythrough-1080p", "77"])
+def test_each_fault_is_not_correct(fault, workload):
+    line = _dry_run(["-m", "portbench.tests.faults", fault, workload, "77"])
     assert line["correct"] is False and line["failed"] >= 1

@@ -23,7 +23,8 @@ def _run(workload, seed, extra=()):
 
 
 @pytest.mark.parametrize("workload", ["horizon.flythrough-1080p",
-                                      "map.flythrough-1080p"])
+                                      "map.flythrough-1080p",
+                                      "horizon.ground-1080p"])
 def test_dry_run_line_whole_loops_and_steady_work(workload):
     lines = []
     for seed in (3, 2 ** 31 + 99):

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from portbench import bounds, cell, traffic
+from portbench.reference import camera
 from portbench.reference import config as ref_config
 from portbench.reference import precision
 
@@ -45,7 +46,8 @@ def test_run_seconds_fit_the_check_at_24_cells():
 def test_cell_files_load(workload):
     c = cell.load(workload)
     assert c.chips == 1
-    assert c.frames == 64 and c.traffic["path"] == "flythrough"
+    assert c.frames == 64 and c.traffic["path"] in camera.PATHS
+    assert c.frames <= camera.PERIOD or c.traffic["path"] == "flythrough"
     assert c.traffic["height"] % 128 == 0
     for key in ("light_irradiance", "light_color", "exposure",
                 "ambient_intensity"):
@@ -165,11 +167,57 @@ def test_device_idle_share_reads_the_untraced_loops_wall_time():
     assert device_idle_share.read(run.Run(cell=None, loops=[])) is None
 
 
-def test_unknown_camera_path_is_refused():
+def _path_cell(path):
+    c = cell.load("horizon.flythrough-1080p")
+    return cell.Cell(c.name, c.chips, c.config, dict(c.traffic, path=path))
+
+
+def _poses(path):
+    """The reference's and the program's poses of a whole loop of
+    ``path``, on the benchmark's terrain."""
     from portbench import run
 
-    c = cell.load("horizon.flythrough-1080p")
-    other = cell.Cell(c.name, c.chips, c.config, dict(c.traffic,
-                                                      path="orbit"))
-    with pytest.raises(ValueError, match="camera path"):
-        run.build_app(other, 1, None, None, torch.device("cpu"))
+    c = _path_cell(path)
+    hm, _ = run.build_inputs(c, torch.device("cpu"))
+    ref = camera.path(path, c.frames, hm, 2048.0, max_height=400.0)
+    return ref, run.program_poses(path, c.frames, hm, 2048.0)
+
+
+@pytest.mark.parametrize("path", [*camera.PATHS, "spiral"])
+def test_unknown_camera_path_is_refused(path):
+    """Each path's poses are the program's bit for bit; another path is
+    refused on both sides, naming the paths there are."""
+    from portbench import run
+
+    if path not in camera.PATHS:
+        for build in (lambda c: run.build_app(c, 1, None, None,
+                                              torch.device("cpu")),
+                      lambda c: run.build_reference(c, None, None,
+                                                    torch.device("cpu"))):
+            with pytest.raises(ValueError, match="camera path .*"
+                               "flythrough, ground, walk, orbit"):
+                build(_path_cell(path))
+        return
+    ref, prog = _poses(path)
+    assert ref.eye.shape == (64, 3)
+    for a, b in zip(ref, prog):
+        assert a.dtype == b.dtype == torch.float32
+        assert torch.equal(a, b)
+    # a pose does not depend on the length of the loop
+    if path != "flythrough":
+        hm, _ = run.build_inputs(_path_cell(path), torch.device("cpu"))
+        short = camera.path(path, 4, hm, 2048.0)
+        assert all(torch.equal(a[:4], b) for a, b in zip(ref, short))
+
+
+@pytest.mark.parametrize("path", camera.PATHS)
+def test_reference_look_at_equals_the_programs(path):
+    from vrenderer_tpu_torch.utils import math3d as prog_math3d
+
+    from portbench.reference import math3d
+
+    ref, _ = _poses(path)
+    for i in range(ref.eye.shape[0]):
+        cam = ref.frame(i)
+        assert torch.equal(math3d.look_at(*cam),
+                           prog_math3d.look_at(*cam))

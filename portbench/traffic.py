@@ -1,11 +1,13 @@
 """The traffic generator: what a run's ``--seed`` varies, read from the
 traffic file's data.
 
-A loop is the App's whole scripted flythrough of ``cameras`` frames at the
-file's frame size; the window is made of whole loops, so every run renders
-every camera equally often. The seed never changes a loop's work: the
-terrain, the cameras, the sun's direction and the budgets are fixed by the
-cell. It draws what leaves the work alone:
+A loop is one call of the App's loop over ``cameras`` poses of the file's
+camera ``path`` (``flythrough``, ``ground``, ``walk`` or ``orbit``:
+``reference/camera.py``) at the file's frame size; the window is made of
+whole loops, so every run renders every camera equally often. The seed
+never changes a loop's work: the terrain, the cameras, the sun's
+direction and the budgets are fixed by the cell. It draws what leaves the
+work alone:
 
 * the light's irradiance and colour, the exposure and the ambient
   intensity, each uniform in the file's ``seeded`` range; they change
