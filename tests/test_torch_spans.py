@@ -1,10 +1,12 @@
 """The frame path's spans (``vrenderer_tpu_torch.profiler.span``) on the
 CPU: what an App flythrough records in horizon and map mode (names,
-parents, frames, the ``Sync`` count of each frame), that nothing records
+parents, frames, the ``Sync`` count of each frame, and the counters
+``Slots``, ``Instances`` and ``Work items``), that nothing records
 without a recording profiler and that spans leave the frames unchanged,
-the shared clock with ``torch.profiler``'s events, the device trace with
-the spans written into it, and the benchmark's span readers
-(``portbench/spans.py``, ``portbench/metrics``) on synthetic loops."""
+that counters cost no operation with spans off, the shared clock with
+``torch.profiler``'s events, the device trace with the spans written into
+it, and the benchmark's span readers (``portbench/spans.py``,
+``portbench/metrics``) on synthetic loops."""
 
 import dataclasses
 import importlib
@@ -20,6 +22,7 @@ import torch_parity  # noqa: F401  (one PyTorch thread a test process)
 from portbench import spans as pspans
 from portbench.run import Run
 from portbench.trace import Trace
+from torch.utils._python_dispatch import TorchDispatchMode
 from vrenderer_tpu_torch import config, profiler
 from vrenderer_tpu_torch.app import App
 from vrenderer_tpu_torch.camera import Camera
@@ -112,6 +115,30 @@ def test_sync_count_per_frame(flown):
         [SYNCS[mode] + (mode == "horizon")] + [SYNCS[mode]] * (FRAMES - 1))
 
 
+def test_counters_of_each_frame(flown):
+    """Every ``Select`` span carries the slots it hands to the vertex
+    stage; each frame's ``Instances`` and ``Work items`` are its
+    ``num_selected`` and ``num_work_items``, on the frame they count."""
+    mode, a, outs = flown
+    evs = ring(a.profiler)
+    frames = sorted({e["frame"] for e in evs if e["name"] == "Render"})
+    counters = [c for f in a.profiler.frames for c in f["counters"]]
+    selects = {e["id"]: e for e in evs if e["name"] == "Select"}
+    slots = [c for c in counters if c["name"] == "Slots"]
+    assert sorted(c["span"] for c in slots) == sorted(selects)
+    for c in slots:
+        assert c["value"] == a.renderer.max_active
+        assert c["frame"] == selects[c["span"]]["frame"]
+    for name, field in (("Instances", "num_selected"),
+                        ("Work items", "num_work_items")):
+        got = {c["frame"]: c["value"] for c in counters
+               if c["name"] == name}
+        assert got == {f: int(getattr(o, field))
+                       for f, o in zip(frames, outs)}
+    assert {c["name"] for c in counters} == {"Slots", "Instances",
+                                             "Work items"}
+
+
 def test_spans_off_record_nothing_and_change_no_frame(flown):
     mode, a, outs = flown
     # an App with spans off (the default) records its own scopes only
@@ -122,10 +149,47 @@ def test_spans_off_record_nothing_and_change_no_frame(flown):
     names = {e["name"] for e in ring(b.profiler)}
     assert names == {"Render", "Wait GPU", "CPU Frame"} | (
         {"Terrain Shadow"} if mode == "horizon" else set())
+    assert all(f["counters"] == [] for f in b.profiler.frames)
     for o, p in zip(outs, plain):
         assert torch.equal(o.ldr, p.ldr) and torch.equal(o.prim_id, p.prim_id)
         assert torch.equal(o.depth, p.depth)
     assert b.adapt_history == a.adapt_history
+
+
+class _Ops(TorchDispatchMode):
+    """Counts the operators dispatched under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops[str(func)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _loop_ops(mode, spans):
+    a = app(mode)
+    a.profiler.spans = spans
+    with _Ops() as ops, pytest.warns(UserWarning):
+        outs = a.run_flythrough(num_frames=FRAMES)
+    return ops.ops, outs[-1]
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_counters_cost_no_operation_with_spans_off(mode):
+    """The loop with spans on issues, a frame, the operators of stacking
+    the three counts for the flag's copy and nothing else more; with spans
+    off it issues only the overflow flag's read, which the counts' list
+    replaces."""
+    on, out = _loop_ops(mode, True)
+    off, _ = _loop_ops(mode, False)
+    with _Ops() as stack:
+        torch.stack([out.overflow, out.num_selected, out.num_work_items])
+    with _Ops() as read:
+        bool(out.overflow)
+    assert on - off == Counter({k: FRAMES * v for k, v in stack.ops.items()})
+    assert off - on == Counter({k: FRAMES * v for k, v in read.ops.items()})
 
 
 def test_renderer_alone_records_nothing():
@@ -140,14 +204,19 @@ def test_renderer_alone_records_nothing():
     assert profiler.last_recorder() is last
     assert (ring(last) if last is not None else []) == before
     assert ring(a.profiler) == []
+    profiler.counter("Slots", 8)                    # records nowhere
     prof = FrameProfiler(spans=True)
     with prof.recording():
         prof.begin_frame()
         with span("Select"):
-            pass
+            profiler.counter("Slots", 8)
         prof.end_frame()
     assert [e["name"] for e in ring(prof)] == ["Select", "CPU Frame"]
+    assert prof.frames[0]["counters"] == [{
+        "name": "Slots", "value": 8, "span": ring(prof)[0]["id"],
+        "frame": 1}]
     assert span("Select") is span("Sync")           # off again after it
+    assert profiler.active() is None
 
 
 def test_spans_share_the_trace_clock():
@@ -212,15 +281,24 @@ FRAME = [("Render", None, 0.0, 10.0),
          ("Setup", 0, 6.0, 7.0), ("Bin", 0, 7.0, 7.5), ("Sync", 9, 7.1, 7.4),
          ("Shade", 0, 8.0, 9.5), ("Sync", 11, 9.0, 9.1),
          ("Wait GPU", None, 10.5, 11.0), ("Sync", 13, 10.6, 10.7)]
+# (name, span index or None, value a frame of 1, 2, 3): the main view's
+# Select (under Render) and the light view's hand the vertex stage 8 and
+# 12 slots; a frame's instances may pass its slots
+COUNTERS = [("Slots", 1, (8, 8, 8)), ("Slots", 5, (12, 12, 12)),
+            ("Instances", None, (3, 5, 12)), ("Work items", None, (9, 9, 9))]
 WANT = {"select_host_ms": 2.5, "vertex_host_ms": 1.0, "setup_host_ms": 1.5,
         "bin_host_ms": 0.5, "light_pass_host_ms": 2.0, "shade_host_ms": 1.5,
-        "host_syncs_per_frame": 4.0, "sync_wait_ms": 0.5 + 0.1 + 0.3 + 0.1}
+        "host_syncs_per_frame": 4.0, "sync_wait_ms": 0.5 + 0.1 + 0.3 + 0.1,
+        # frames 2 and 3: (min(5, 8) + min(12, 8)) / (8 + 8)
+        "slot_fill_share": 100.0 * 13 / 16}
 OFFSET = 1_700_000_000_000_000_000
 
 
-def synthetic_recorder(frames=2, spec=FRAME, period_ms=20.0):
+def synthetic_recorder(frames=2, spec=FRAME, period_ms=20.0,
+                       counters=COUNTERS):
     """A profiler made the last recorder, its ring holding ``frames``
-    frames of ``spec`` one ``period_ms`` after another."""
+    frames of ``spec`` and ``counters`` one ``period_ms`` after another
+    (``counters=None``: a ring without counters, as before them)."""
     prof = FrameProfiler(spans=True)
     with prof.recording():
         pass
@@ -237,6 +315,11 @@ def synthetic_recorder(frames=2, spec=FRAME, period_ms=20.0):
                         "depth": 0, "frame": f})
         ring_frames.append({"events": evs, "start": base * MS, "frame": f,
                             "clock_offset_ns": OFFSET})
+        if counters is not None:
+            ring_frames[-1]["counters"] = [
+                {"name": name, "value": values[f - 1], "frame": f,
+                 "span": None if at is None else evs[at]["id"]}
+                for name, at, values in counters]
     prof.frames = ring_frames
     return prof
 
@@ -255,6 +338,17 @@ def test_span_metric_readers(metric):
     assert read(synthetic_run(frames=2)) == pytest.approx(WANT[metric])
     assert read(synthetic_run(frames=4)) is None   # the ring is too short
     assert read(Run(cell=None, loops=[], trace=None)) is None
+
+
+def test_slot_fill_share_needs_the_counters():
+    """A ring without counters (a program before them) or without the
+    main view's ``Slots`` reads None."""
+    from portbench.metrics import slot_fill_share
+
+    synthetic_recorder(frames=3, counters=None)
+    assert slot_fill_share.read(synthetic_run(frames=2)) is None
+    synthetic_recorder(frames=3, counters=COUNTERS[1:])
+    assert slot_fill_share.read(synthetic_run(frames=2)) is None
 
 
 def test_idle_by_span_splits_gaps_by_the_innermost_span():

@@ -24,7 +24,7 @@ from vrenderer_tpu_torch.camera import Camera, flythrough
 from vrenderer_tpu_torch.config import FrameConfig
 from vrenderer_tpu_torch.ops import lighting, raster, raster_cuda, shadow
 from vrenderer_tpu_torch.ops import vertex
-from vrenderer_tpu_torch.profiler import FrameProfiler, PassTimer
+from vrenderer_tpu_torch.profiler import FrameProfiler, PassTimer, active
 from vrenderer_tpu_torch.renderer import (
     FrameParams, Renderer, overflow_message,
 )
@@ -102,7 +102,10 @@ class App:
           ``frames_in_flight`` frames (the reference's frameLatency=2,
           main.cpp:70). On the card each frame's ldr and overflow flag are
           copied to pinned host memory behind it on the stream; "Wait GPU"
-          waits for that copy, so it waits for its own frame only.
+          waits for that copy, so it waits for its own frame only. While
+          the profiler records spans, the frame's ``num_selected`` and
+          ``num_work_items`` ride in the flag's copy and are recorded as
+          its ``Instances`` and ``Work items`` counters.
 
         Returns the frames' ``FrameOutput``s, on the device."""
         if frames_in_flight < 1:
@@ -129,15 +132,22 @@ class App:
         adapted_lum = torch.tensor(0.5, dtype=torch.float32,
                                    device=self.device)
         lum_trace = []
-        # (frame index, its profiler frame, FrameOutput, ldr, overflow, done)
+        # (frame index, its profiler frame, FrameOutput, ldr, flags, done);
+        # flags: the overflow flag, or while counting (overflow, selected,
+        # work items)
         in_flight = []
         outputs = []
 
-        def retire(i, frame, out, ldr, overflow, done):
+        def retire(i, frame, out, ldr, flags, done):
             with self.profiler.scope("Wait GPU", frame=frame):
                 if done is not None:
                     done.synchronize()
                 ldr = ldr.numpy()
+            overflow = flags
+            if counting:
+                overflow, selected, work = flags.tolist()
+                self.profiler.count("Instances", selected, frame=frame)
+                self.profiler.count("Work items", work, frame=frame)
             if bool(overflow):
                 # the reference asserts on instance overflow
                 # (TerrainPass.cpp:238): name the capacity that overflowed
@@ -148,6 +158,7 @@ class App:
             outputs.append(out)
 
         with self.profiler.recording():
+            counting = active() is self.profiler
             for i in range(num_frames):
                 self.profiler.begin_frame()
                 cam = cams.frame(i)
@@ -169,14 +180,16 @@ class App:
                         out = r.render(cam, self.params,
                                        shadow_prepass=prepass)
                     done = None
+                    ldr, flags = out.ldr, out.overflow
+                    if counting:
+                        flags = torch.stack([flags, out.num_selected,
+                                             out.num_work_items])
                     if on_card:
-                        ldr = out.ldr.to("cpu", non_blocking=True)
-                        overflow = out.overflow.to("cpu", non_blocking=True)
+                        ldr = ldr.to("cpu", non_blocking=True)
+                        flags = flags.to("cpu", non_blocking=True)
                         done = torch.cuda.Event()
                         done.record()
-                    else:
-                        ldr, overflow = out.ldr, out.overflow
-                in_flight.append((i, self.profiler.frame, out, ldr, overflow,
+                in_flight.append((i, self.profiler.frame, out, ldr, flags,
                                   done))
                 if len(in_flight) >= frames_in_flight:
                     retire(*in_flight.pop(0))

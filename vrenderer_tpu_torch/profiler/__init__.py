@@ -3,6 +3,8 @@ from vrenderer_tpu_torch.profiler.profiler import (  # noqa: F401
     REFERENCE_GPU_COUNTERS,
     FrameProfiler,
     PassTimer,
+    active,
+    counter,
     last_recorder,
     span,
     start_device_trace,

@@ -24,6 +24,13 @@ the reference's counter names (Renderer.cpp:326-440; the JAX package's
   ``torch.profiler`` trace is running; each frame of the ring keeps the
   offset from the ring's clock to the trace's (``clock_offset_ns``), so
   the spans can be laid on the trace's timeline.
+* ``counter``: a count of the frame path (``Slots``: the instance slots a
+  ``Select`` span hands to the vertex stage), recorded only where spans
+  record, into the frame's ``counters`` list beside its spans: its name,
+  value, the span open around it (``span``) and the frame it belongs to.
+  The App adds each frame's ``Instances`` and ``Work items`` (the
+  reference's per-frame terrain instance counter, TerrainPass.cpp:198,
+  Renderer.cpp:468).
 * ``start_device_trace`` / ``stop_device_trace``: a ``torch.profiler``
   trace of the card's activities (the CPU's operators where there is no
   card), written with the spans recorded meanwhile in one chrome trace.
@@ -161,6 +168,19 @@ def span(name: str):
     return _Scope(prof, name, None)
 
 
+def counter(name: str, value: int) -> None:
+    """A host-known count of the frame path in the active profiler's ring,
+    on the span open around it; nothing where no profiler records."""
+    prof = _active
+    if prof is not None:
+        prof.count(name, value)
+
+
+def active() -> Optional["FrameProfiler"]:
+    """The profiler that ``span`` and ``counter`` record into, or None."""
+    return _active
+
+
 def sync_copy(t: torch.Tensor, device) -> torch.Tensor:
     """``t.to(device)`` in a ``Sync`` span: on the card a copy from or to
     pageable host memory waits until the stream has drained (the same call
@@ -217,7 +237,8 @@ class FrameProfiler:
         if self.paused:
             return
         self.frames.append({
-            "events": [], "start": self._frame_start, "frame": self.frame,
+            "events": [], "counters": [], "start": self._frame_start,
+            "frame": self.frame,
             # torch.profiler's clock (kineto's: Unix-epoch ns, on the CPU
             # build and the card's CUDA build alike) = ring clock + offset
             "clock_offset_ns": time.time_ns() - time.perf_counter_ns()})
@@ -240,6 +261,15 @@ class FrameProfiler:
         ev["end"] = time.perf_counter()
         ev["depth"] = len(self._open)
         self.frames[-1]["events"].append(ev)
+
+    def count(self, name: str, value: int, frame: Optional[int] = None):
+        """Record a counter on the open span; ``frame`` as in ``begin``."""
+        if self.paused or not self.frames:
+            return
+        self.frames[-1]["counters"].append({
+            "name": name, "value": value,
+            "span": self._open[-1]["id"] if self._open else None,
+            "frame": self.frame if frame is None else frame})
 
     def scope(self, name: str, frame: Optional[int] = None):
         """A span around a ``with`` block (``begin`` and ``end``)."""

@@ -48,7 +48,7 @@ from vrenderer_tpu_torch.config import FrameConfig, LightParams
 from vrenderer_tpu_torch.ops import (
     lighting, raster, raster_cuda, shadow, texture, vertex,
 )
-from vrenderer_tpu_torch.profiler import span, sync_copy
+from vrenderer_tpu_torch.profiler import counter, span, sync_copy
 from vrenderer_tpu_torch.terrain import grid as gridmod
 from vrenderer_tpu_torch.terrain import quadtree
 from vrenderer_tpu_torch.utils import math3d
@@ -412,6 +412,7 @@ class Renderer:
                     lock_instances = quadtree.select_all_surfaces(
                         ts, vc["camera_pos"], math3d.frustum_planes(wtc), lr)
                 instances = self._clip_active(lock_instances)
+                counter("Slots", instances.valid.shape[0])
             with span("Vertex"):
                 vout = vertex.vertex_stage(
                     ts, instances, vc["camera_pos"], self.heightmap,
@@ -585,6 +586,7 @@ class Renderer:
         if share:
             with span("Select"):
                 instances = self._main_members(out[5], vc)
+                counter("Slots", instances.valid.shape[0])
             geom = out[6]
             with span("Vertex"):
                 vout = vertex.VertexOutput(
@@ -820,6 +822,7 @@ class Renderer:
         with span("Select"):
             instances, sel_eye, sel_ranges = self._light_select(
                 params, wtc, camera_pos)
+            counter("Slots", instances.valid.shape[0])
         with span("Vertex"):
             geom = vertex.vertex_geometry(ts, instances, sel_eye,
                                           self.heightmap, params.max_height,
