@@ -191,12 +191,27 @@ Phases, each printing one line and raising on failure:
     under ``torch.cuda.set_sync_debug_mode("error")``; CUDA-event times of
     both (the plain sweep unqueued), the host ms a call of each, the
     device's launches a call of each (from a ``torch.profiler`` trace;
-    the kernel's must be 1) and the bound (its outputs' bytes).
+    the kernel's must be 1) and the bound (its outputs' bytes);
+18. setup kernel (run after phase 17): ``vrt_setup``
+    (``raster_cuda.setup_packed``, csrc/setup.cu, one launch a part)
+    against the plain chain it replaces on the card
+    (``raster_cuda.setup_packed_plain``) at cameras 0 and 13 of the
+    horizon configuration's main view and of the map configuration's main
+    and light views (the terrain slots and the boot cube's blocks): the
+    rows and instance bounds bit for bit equal, the kernel's call made
+    under ``torch.cuda.set_sync_debug_mode("error")``; CUDA-event times of
+    both (the kernel's queued behind a device sleep, the plain chain's
+    unqueued), the host ms a call of each, the device's launches a call of
+    each (the kernel's one a part) and the bound (``setup_bytes``: the
+    inputs read and the rows written once).
 
-Each path's kernel launches, the selection kernel's among them, are
-counted from 0 just before it runs and checked against the path's own
-count: one selection a main view and one a light pass (a map frame
-selects twice), none for a lock-view frame. Then one JSON line with each
+Each path's kernel launches, the selection and setup kernels' among
+them, are counted from 0 just before it runs and checked against the
+path's own count: one selection a main view and one a light pass (a map
+frame selects twice), none for a lock-view frame; one setup launch a part
+of every main and light raster (the terrain slots and, with a scene, its
+blocks: two a raster on every path with the boot cube), none for the
+mesh-top field, which stays on the plain chain. Then one JSON line with each
 kernel's launches (on its path: B1, B2 and the selection kernel on the
 map path, B3a and B3b on the two-phase path; B1, B2 and B3a carry each
 input's busiest region's pairs (``busiest_region_pairs``), the blocks its
@@ -209,10 +224,10 @@ editor path's launches and numbers under ``editor_launches`` and
 ``workloads_launches`` and ``workloads``, and each kernel the sharded
 path's launches and its band numbers under ``sharded_launches`` and
 ``sharded``; P1-P4 the probes' launches, their reported case under
-``case`` and every case under ``cases``; the selection kernel the
-editor, workload and sharded paths' launches like B1 and B2, and its
-phase 17 numbers at each view and camera under ``cameras``; phase 17's
-own calls are in no count), and its error, times and
+``case`` and every case under ``cases``; the selection and setup
+kernels the editor, workload and sharded paths' launches like B1 and B2,
+and their phase 17 and 18 numbers at each view and camera under
+``cameras``; phases 17's and 18's own calls are in no count), and its error, times and
 bound at camera 13, with each camera's under ``cameras`` (B1's at the
 map path's inputs, B3a's and B3b's at the horizon path's), and for B1, B2
 and B3a the pairs their block test evaluates (``evaluated_pairs``) beside
@@ -861,23 +876,27 @@ def launch_counted():
 
     return (raster_cuda.rasterize, raster_cuda.rasterize_depth,
             raster_cuda.rasterize_zid, raster_cuda.filter_work_to_winners,
-            raster_cuda.rasterize_resolve, quadtree.select_cuda)
+            raster_cuda.rasterize_resolve, quadtree.select_cuda,
+            raster_cuda.setup_packed)
 
 
 def read_launches() -> dict:
     return dict(zip(("raster", "raster_depth", "raster_zid",
-                     "raster_filter", "raster_resolve", "select"),
+                     "raster_filter", "raster_resolve", "select", "setup"),
                     (fn.launches for fn in launch_counted())))
 
 
 def launches(raster=0, raster_depth=0, raster_zid=0, raster_filter=0,
-             raster_resolve=0, select=0):
+             raster_resolve=0, select=0, setup=0):
     """The expected counts of ``read_launches``. ``select``: one a main
     view's selection and one a light pass's (a map frame's inline light
-    pass selects again)."""
+    pass selects again). ``setup``: one a part of each main and light
+    raster (two with the boot cube: its terrain slots and its blocks); the
+    mesh-top field's raster sets up on the plain chain."""
     return {"raster": raster, "raster_depth": raster_depth,
             "raster_zid": raster_zid, "raster_filter": raster_filter,
-            "raster_resolve": raster_resolve, "select": select}
+            "raster_resolve": raster_resolve, "select": select,
+            "setup": setup}
 
 
 def phase_flythrough(name, r, params, cams, prepass=None, frames=None,
@@ -1100,7 +1119,7 @@ def phase_two_phase_path(device, params, cams, single) -> list:
                                     prepass, keep=outs)
     n = cams.eye.shape[0] + 1           # the frames and the warm-up frame
     if launched != launches(raster_zid=n, raster_filter=n, raster_resolve=n,
-                            select=n):
+                            select=n, setup=2 * n):
         raise RuntimeError(f"two-phase path launches {launched}")
     for i, (a, b) in enumerate(zip(outs, single)):
         for f in ("ldr", "depth", "prim_id", "overflow_mask"):
@@ -1124,7 +1143,7 @@ def phase_mode_frames(device, params, cams) -> None:
         ms, launched = phase_flythrough(f"{name} horizon", r, params, cams,
                                         prepass, frames=MODE_CAMERAS)
         n = len(MODE_CAMERAS) + 1
-        if launched != launches(raster=n, select=n):
+        if launched != launches(raster=n, select=n, setup=2 * n):
             raise RuntimeError(f"{name} frames launches {launched}")
         log(f"{name} frame times (cameras {MODE_CAMERAS}): "
             + ", ".join(f"{m:.3f} ms" for m in ms))
@@ -1393,8 +1412,9 @@ def phase_map_golden(device) -> None:
         f"{maps[0][1]:.4f}/{maps[1][1]:.4f} (median {maps[0][2]:.3g}/"
         f"{maps[1][2]:.3g}); launches {launched}")
     # selections: the inline frame's light and main views, the light view
-    # of light_raster_inputs and of render_shadow_depth
-    if launched != launches(raster=1, raster_depth=3, select=4):
+    # of light_raster_inputs and of render_shadow_depth; each sets up the
+    # terrain and the cube
+    if launched != launches(raster=1, raster_depth=3, select=4, setup=8):
         raise RuntimeError(f"the inline map frame did not run both kernels "
                            f"and the selections: launches {launched}")
     if not (same.mean() >= 0.999 and d[same].max() < 5e-3
@@ -1426,7 +1446,8 @@ def phase_map_cached(device, params, cams) -> None:
     launched = read_launches()
     # the light-eye selection once, a main selection a frame
     if launched != launches(raster=CACHED_CAMERAS, raster_depth=1,
-                            select=CACHED_CAMERAS + 1):
+                            select=CACHED_CAMERAS + 1,
+                            setup=2 * (CACHED_CAMERAS + 1)):
         raise RuntimeError(f"cached loop launches {launched}")
     for i, out in enumerate(cached):
         inline = r.render(cams.frame(i), params)
@@ -1611,7 +1632,8 @@ def phase_app(device, card: str) -> None:
     stats2 = frame_stats(outs, "app run 2")
     del outs
     hist = np.asarray(app.adapt_history)
-    if launched != launches(raster=APP_FRAMES, select=APP_FRAMES):
+    if launched != launches(raster=APP_FRAMES, select=APP_FRAMES,
+                            setup=2 * APP_FRAMES):
         raise RuntimeError(f"app run 2 launches {launched}")
     if not (hist.shape == (APP_FRAMES,) and np.isfinite(hist).all()
             and abs(hist[-1] - 0.5) > 1e-3):
@@ -1642,7 +1664,8 @@ def phase_app(device, card: str) -> None:
     outs, launched, sec, ms3, wait3 = app_run(app, "app run 3",
                                               num_frames=APP_FRAMES,
                                               adapt=False)
-    if launched != launches(raster=APP_FRAMES, select=APP_FRAMES):
+    if launched != launches(raster=APP_FRAMES, select=APP_FRAMES,
+                            setup=2 * APP_FRAMES):
         raise RuntimeError(f"app run 3 launches {launched}")
     for i, o in enumerate(outs):
         ref = r.render(cams.frame(i), app.params, shadow_prepass=prepass)
@@ -1767,6 +1790,7 @@ def _phase_editor(device, card: str, tmp: str) -> tuple:
     ed._render = timed_render
     reset_launches()
     frames, ms, b1_expect, b2_expect, sel_expect = [], [], 0, 0, 0
+    setup_expect = 0
     lock_state = reload_pair = None
     for line in EDITOR_SCRIPT:
         cmd = line.format(glb=glb, tmp=tmp)
@@ -1785,6 +1809,7 @@ def _phase_editor(device, card: str, tmp: str) -> tuple:
             ms.append((start, end))
             b1_expect += 1 + scene     # the main raster and the mesh-top field
             sel_expect += ed.locked_instances is None
+            setup_expect += 1 + scene  # the terrain and the scene's blocks
             if ed.locked_instances is not None:
                 lock_state = (r, ed.camera, ed.app.params,
                               ed.locked_instances, out,
@@ -1792,9 +1817,11 @@ def _phase_editor(device, card: str, tmp: str) -> tuple:
         elif cmd.startswith("fly"):
             b1_expect += int(cmd.split()[1]) + scene    # + its prepass cache
             sel_expect += int(cmd.split()[1])
+            setup_expect += int(cmd.split()[1]) * (1 + scene)
         elif cmd.startswith("shadow-depth"):
             b2_expect += 1
             sel_expect += 1            # the light view's selection
+            setup_expect += 1 + scene
         elif cmd == "lock":
             sel_expect += 1            # the frozen selection
         elif cmd == "reload":
@@ -1807,10 +1834,10 @@ def _phase_editor(device, card: str, tmp: str) -> tuple:
     run_s = time.perf_counter() - t0
 
     if launched != launches(raster=b1_expect, raster_depth=b2_expect,
-                            select=sel_expect):
+                            select=sel_expect, setup=setup_expect):
         raise RuntimeError(f"editor launches {launched}, expected B1 "
                            f"{b1_expect}, B2 {b2_expect}, selections "
-                           f"{sel_expect}")
+                           f"{sel_expect}, setups {setup_expect}")
     for i, _, out in frames:
         fin = bool(torch.isfinite(out.ldr).all() & torch.isfinite(out.hdr)
                    .all())
@@ -2018,7 +2045,8 @@ def phase_sharded(device, card: str, params, cams) -> dict:
     r.render(cams.frame(idx[0]), params)
     frames, ovf, _, ms["mesh_1x1"], runs["a"] = sharded_run(
         "(a) own mesh", r, params, sub_cameras(cams, idx), mesh1)
-    if runs["a"] != launches(raster=2 * len(idx), select=len(idx)):
+    if runs["a"] != launches(raster=2 * len(idx), select=len(idx),
+                             setup=2 * len(idx)):
         raise RuntimeError(f"sharded (a) launches {runs['a']}")
     singles, _, ms["single"] = single_frames(r, params, cams, idx)
     for k, (f, o, s) in enumerate(zip(frames, ovf, singles)):
@@ -2035,7 +2063,8 @@ def phase_sharded(device, card: str, params, cams) -> dict:
         "(b) adapting", r, params, sub_cameras(cams, idx), mesh23,
         adapted_lum=0.5, dt=SHARD_DT)
     if runs["b"] != launches(raster=2 * len(idx) * SHARD_BANDS,
-                             select=len(idx) * SHARD_BANDS):
+                             select=len(idx) * SHARD_BANDS,
+                             setup=2 * len(idx) * SHARD_BANDS):
         raise RuntimeError(f"sharded (b) launches {runs['b']}")
     half = len(idx) // 2
     chain, lums = [], []
@@ -2065,7 +2094,8 @@ def phase_sharded(device, card: str, params, cams) -> dict:
                               shadow_mode="map", shadow_resolution=SHADOW_RES)
     frames, _, _, ms["map_mesh_1x3"], runs["c"] = sharded_run(
         "(c) map", rm, params, few, mesh3)
-    if runs["c"] != launches(raster=n, raster_depth=n, select=2 * n):
+    if runs["c"] != launches(raster=n, raster_depth=n, select=2 * n,
+                             setup=4 * n):
         raise RuntimeError(f"sharded (c) launches {runs['c']}")
     singles, _, ms["map_single"] = single_frames(rm, params, cams, idx)
     shares["c"] = band_share("(c)", frames, singles)
@@ -2081,7 +2111,7 @@ def phase_sharded(device, card: str, params, cams) -> dict:
     two, _, _, ms["mesh_1x3_two_phase"], runs["d"] = sharded_run(
         "(d) two-phase", r2, params, few, mesh3)
     if runs["d"] != launches(raster=n, raster_zid=n, raster_filter=n,
-                             raster_resolve=n, select=n):
+                             raster_resolve=n, select=n, setup=2 * n):
         raise RuntimeError(f"sharded (d) launches {runs['d']}")
     if not torch.equal(two, one):
         raise RuntimeError("sharded (d): two-phase banded frames differ from "
@@ -2204,9 +2234,10 @@ def workload_run(name: str, mode: str, quant, shadow_res, device,
     b2 = {"map": n, "mapref": n}.get(mode, 0)
     if quant_mode:
         b2 = crossings + 1
-    # a main selection a frame and a light selection a light raster
+    # a main selection a frame and a light selection a light raster; each
+    # of those rasters sets up the terrain and the boot cube
     want = launches(raster=n + (0 if mode in workloads.MAP_MODES else 1),
-                    raster_depth=b2, select=n + b2)
+                    raster_depth=b2, select=n + b2, setup=2 * (n + b2))
     if launched != want or steady.light_rasters != b2:
         raise RuntimeError(f"workload {name}: launches {launched}, light "
                            f"rasters {steady.light_rasters}, expected {want}")
@@ -2976,18 +3007,24 @@ def phase_probes(device, card: str) -> list:
 def device_activities(fn) -> int:
     """The device's activities (kernels, copies, sets) of one call of
     ``fn``, after a warm-up call, from a ``torch.profiler`` trace of the
-    device alone."""
+    device alone. A trace that holds no device activity at all lost the
+    call's records (CUPTI now and then delivers an empty trace, and every
+    ``fn`` here launches): it is taken again, up to three traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.profiler.kineto_results.events()
-               if str(e.device_type()).endswith("CUDA")
-               and e.duration_ns() > 0)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.profiler.kineto_results.events()
+                if str(e.device_type()).endswith("CUDA")
+                and e.duration_ns() > 0)
+        if n:
+            return n
+    return 0
 
 
 def phase_select(device, card: str) -> dict:
@@ -3069,6 +3106,103 @@ def phase_select(device, card: str) -> dict:
             "library_ms": None}
 
 
+def setup_bytes(parts, with_coef: bool) -> int:
+    """``vrt_setup``'s bytes: each part's vertices (12 B, and 4 B an
+    attribute channel), instance flags and indices read once, and the rows
+    (64 B, and 108 B with coefficients, a triangle) and instance bounds
+    (21 B) written once."""
+    n = 0
+    for world, attrs, valid, tri_idx in parts:
+        I, T = world.shape[0], tri_idx.shape[0]
+        n += (world.numel() + attrs.numel()) * 4 + I + tri_idx.numel() * 8
+        n += I * (T * (VIS_BYTES + (COEF_BYTES if with_coef else 0)) + 21)
+    return n
+
+
+def phase_setup(device, card: str) -> dict:
+    """Phase 18 (module docstring). Returns the setup kernel's entry of the
+    ``kernels`` line."""
+    from vrenderer_tpu_torch.ops import raster_cuda
+    from vrenderer_tpu_torch.probes.common import bits_equal
+
+    t0 = time.perf_counter()
+    per_cam, texts = {}, []
+    for cfg_name, kw in (("horizon", {}), ("map", {
+            "max_active": MAP_MAX_ACTIVE, "shadow_mode": "map",
+            "shadow_resolution": SHADOW_RES})):
+        r, params, cams = bench_renderer(device, **kw)
+        cfg = r.config
+        prepass = (r.cached_horizon_prepass(params)
+                   if cfg.shadow_mode == "horizon" else None)
+        for i in KERNEL_CAMERAS:
+            vc = r._view(cams.frame(i))
+            sh = r._shadow_inputs(vc, params, None, prepass)
+            views = [("main", r._raster_parts(vc, params, sh)[0],
+                      vc["world_to_clip"], cfg.width, cfg.height)]
+            if cfg_name == "map":
+                lparts, wtc_l = r._light_parts(
+                    params, vc["camera_pos"], r._scene_wa(params))[:2]
+                views.append(("light", lparts, wtc_l, SHADOW_RES, SHADOW_RES))
+            for view, parts, wtc, w, h in views:
+                def kernel():
+                    return raster_cuda.setup_packed(parts, wtc, w, h)
+
+                def plain():
+                    return raster_cuda.setup_packed_plain(parts, wtc, w, h)
+
+                label = f"vrt_setup {cfg_name} {view} camera {i}"
+                before = raster_cuda.setup_packed.launches
+                with no_host_sync():
+                    got = kernel()
+                if raster_cuda.setup_packed.launches != before + len(parts):
+                    raise RuntimeError(f"{label}: not one launch a part")
+                want = plain()
+                for f, a, b in (("vis", got.tris.vis, want.tris.vis),
+                                ("coef", got.tris.coef, want.tris.coef),
+                                ("bbox", got.bbox, want.bbox),
+                                ("usable", got.usable, want.usable),
+                                ("dist", got.dist, want.dist)):
+                    if (a is None) != (b is None) or (
+                            b is not None and not bits_equal(a, b)):
+                        raise RuntimeError(f"{label}: {f} differs from the "
+                                           f"plain chain")
+                d = {"instances": int(want.usable.sum()),
+                     "triangles": int((want.tris.vis[..., 12] < 3.0e38)
+                                      .sum()),
+                     "ms": cuda_ms(kernel, 20),
+                     "plain_ms": cuda_ms(plain, 3, queued=False),
+                     **bound(setup_bytes(parts, want.tris.coef is not None),
+                             0),
+                     "host_ms": host_ms(kernel),
+                     "plain_host_ms": host_ms(plain, 5),
+                     "device_launches": device_activities(kernel),
+                     "plain_device_launches": device_activities(plain)}
+                if d["device_launches"] != len(parts):
+                    raise RuntimeError(f"{label}: {d['device_launches']} "
+                                       f"device launches a call, not "
+                                       f"{len(parts)}")
+                per_cam[f"{cfg_name}.{view}.{i}"] = d
+                texts.append(
+                    f"{cfg_name} {view} camera {i}: {d['instances']} usable "
+                    f"instances, {d['triangles']} live triangles, kernel "
+                    f"{d['ms']:.4f} ms ({d['device_launches']} device "
+                    f"launches, host {d['host_ms']:.4f} ms), plain "
+                    f"{d['plain_ms']:.3f} ms ({d['plain_device_launches']} "
+                    f"device launches, host {d['plain_host_ms']:.3f} ms), "
+                    f"bound {d['bound_ms']:.4f} ms")
+        del r
+    log(f"setup kernel vrt_setup ({card}; rows and instance bounds bit for "
+        f"bit equal to the plain chain, no host sync; CUDA events; "
+        f"{time.perf_counter() - t0:.1f} s): " + "; ".join(texts))
+    top = per_cam[f"horizon.main.{JSON_CAMERA}"]
+    return {"name": "setup", "route": "cuda",
+            "source": "vrenderer_tpu_torch/csrc/setup.cu",
+            "replaces": "vrenderer_tpu/ops/raster.py:setup_components "
+                        "(plain JAX, no Pallas kernel)",
+            **top, "camera": JSON_CAMERA, "cameras": per_cam,
+            "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -3106,6 +3240,7 @@ def main() -> int:
         return 0
     log(f"atomics (SASS): {sass_atomics()}")
     kern_sel = phase_select(device, card)
+    kern_setup = phase_setup(device, card)
 
     r, params, cams = bench_renderer(device)
     prepass = r.cached_horizon_prepass(params)
@@ -3117,7 +3252,7 @@ def main() -> int:
     ms, launched = phase_flythrough("horizon", r, params, cams, prepass,
                                     keep=single)
     # 64 frames + the warm-up frame (the prepass was cached before)
-    if launched != launches(raster=65, select=65):
+    if launched != launches(raster=65, select=65, setup=130):
         raise RuntimeError(f"horizon path launches {launched}")
     log(f"horizon frame times ({card}): mean {np.mean(ms):.3f} ms, p50 "
         f"{np.median(ms):.3f} ms, max {np.max(ms):.3f} ms over 64 frames "
@@ -3139,7 +3274,8 @@ def main() -> int:
     phase_map_golden(device)
     map_ms, map_launches = phase_flythrough("map", rm, params, cams)
     # the light and the main view's selection a frame
-    if map_launches != launches(raster=65, raster_depth=65, select=130):
+    if map_launches != launches(raster=65, raster_depth=65, select=130,
+                                setup=260):
         raise RuntimeError(f"map path launches {map_launches}")
     log(f"map frame times ({card}): mean {np.mean(map_ms):.3f} ms, p50 "
         f"{np.median(map_ms):.3f} ms, max {np.max(map_ms):.3f} ms over 64 "
@@ -3189,6 +3325,10 @@ def main() -> int:
          "editor_launches": ed_launches["select"],
          "sharded_launches": sh_launches["select"],
          "workloads_launches": wl_launches["select"]},
+        {**kern_setup, "launches": map_launches["setup"],
+         "editor_launches": ed_launches["setup"],
+         "sharded_launches": sh_launches["setup"],
+         "workloads_launches": wl_launches["setup"]},
         *probe_entries,
     ]}))
     print(nvidia_smi())

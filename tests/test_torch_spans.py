@@ -38,11 +38,13 @@ FRAMES = 3
 
 # (span, parent) of a steady frame; the cube's horizon prepass is cached
 # after the first frame, and map mode shares the light view's geometry.
+# One ``Setup`` a raster (``raster_cuda.setup_packed``); on the CPU its
+# plain chain still copies ``pack_vis``' empty bbox to the device.
 # A selection syncs on the CPU only, in the plain version's three
 # compactions (on the card the kernel vrt_select syncs none).
 COMMON = {("Render", None): 1, ("View", "Render"): 1,
           ("Sync", "View"): 9, ("Scene", "Render"): 1, ("Sync", "Scene"): 1,
-          ("Vertex", "Render"): 2, ("Setup", "Render"): 2,
+          ("Vertex", "Render"): 2, ("Setup", "Render"): 1,
           ("Sync", "Setup"): 1, ("Bin", "Render"): 1, ("Sync", "Bin"): 1,
           ("Raster", "Render"): 1, ("Shade", "Render"): 2,
           ("Sync", "Shade"): 5, ("Select", "Render"): 1,
@@ -53,7 +55,7 @@ STEADY = {
                 ("Sync", "Terrain Shadow"): 3},
     "map": {**COMMON, ("Light pass", "Render"): 1,
             ("Sync", "Light pass"): 8, ("Select", "Light pass"): 1,
-            ("Vertex", "Light pass"): 1, ("Setup", "Light pass"): 2,
+            ("Vertex", "Light pass"): 1, ("Setup", "Light pass"): 1,
             ("Bin", "Light pass"): 1, ("Raster", "Light pass"): 1,
             ("Sync", "Select"): 6,
             ("Sync", "Setup"): 2, ("Sync", "Bin"): 2}}

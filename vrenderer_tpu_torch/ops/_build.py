@@ -1,8 +1,8 @@
 """Builds the package's CUDA sources and loads them with ctypes.
 
 On first use, ``load()`` runs ``nvcc`` on ``vrenderer_tpu_torch/csrc/*.cu``
-(the rasterizer, ``raster.cu``, the quadtree selection, ``select.cu``, and
-the microbenchmarks, ``probes.cu``)
+(the rasterizer, ``raster.cu``, the quadtree selection, ``select.cu``, the
+triangle setup, ``setup.cu``, and the microbenchmarks, ``probes.cu``)
 into one shared library with a plain C interface under
 ``vrenderer_tpu_torch/_build/<hash>/``, keyed by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one is reused. The
@@ -111,6 +111,8 @@ def load() -> ctypes.CDLL:
                                          p, p]
         lib.vrt_select.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p, p, p,
                                    p, p, p]
+        lib.vrt_setup.argtypes = [p, p, i, p, p, i, i, i, i, p, i, i, f, i,
+                                  f, p, p, p, p, p, p]
         lib.vrt_probe_sweep.argtypes = [p, p, p, i, i, i, i, f, f, p]
         lib.vrt_probe_eval.argtypes = [p, p, i, i, i, i, i, i, p, i, p, p, p,
                                        p]
@@ -119,7 +121,7 @@ def load() -> ctypes.CDLL:
         for fn in (lib.vrt_raster, lib.vrt_raster_zid, lib.vrt_raster_bins,
                    lib.vrt_raster_gather,
                    lib.vrt_raster_resolve, lib.vrt_filter_winners,
-                   lib.vrt_raster_depth, lib.vrt_select,
+                   lib.vrt_raster_depth, lib.vrt_select, lib.vrt_setup,
                    lib.vrt_probe_sweep, lib.vrt_probe_eval,
                    lib.vrt_probe_merge, lib.vrt_probe_window):
             fn.restype = i

@@ -49,6 +49,12 @@ the result:
   ``rasterize``'s. Both take each pixel once, one block per supertile (the
   filter) or per band of rows of one (B3b).
 
+Before the raster, ``setup_packed`` sets the frame's triangles up into
+the packed rows (``PackedTris``) and the instance bounds the work list
+reads: kernel S2 (``vrt_setup``, csrc/setup.cu, one launch a part) for
+CUDA tensors, ``setup_packed_plain`` (``raster.setup_components`` and its
+packing, the JAX package's plain setup) for CPU tensors.
+
 The work list keeps the JAX package's count (one leading dummy per
 supertile plus every overlapping (usable instance, supertile) pair, so
 ``FrameOutput.num_work_items`` agrees) and drops the same items on
@@ -64,7 +70,7 @@ from typing import NamedTuple
 
 import torch
 
-from vrenderer_tpu_torch.ops import _build
+from vrenderer_tpu_torch.ops import _build, raster
 from vrenderer_tpu_torch.ops.raster import F32_FAR, TriSetup
 from vrenderer_tpu_torch.profiler import span, sync_copy
 
@@ -98,11 +104,12 @@ class PackedTris(NamedTuple):
     vis:  (I, T, 16) float32, rows e0(a, b, c) e1 e2 z(a, b, c) and the
           inclusive pixel bbox (x0, y0, x1, y1); invalid triangles have
           zero planes and the empty bbox (+FAR, +FAR, -FAR, -FAR).
-    coef: (I, T, 27) float32, (a, b, c) of inv_w then attr_k / w.
+    coef: (I, T, 27) float32, (a, b, c) of inv_w then attr_k / w; None
+          for a depth-only raster, which reads no attribute planes.
     """
 
     vis: torch.Tensor
-    coef: torch.Tensor
+    coef: torch.Tensor | None
 
 
 class WorkList(NamedTuple):
@@ -176,6 +183,165 @@ def instance_bbox_components(comp, width: int, height: int,
     dist = ext(cw, big, torch.amin)
     return (torch.stack([x0, y0, x1, y1], dim=-1), inst_valid & on & any_front,
             dist)
+
+
+class PackedSetup(NamedTuple):
+    """``setup_packed``'s outputs over the parts' instances in order: the
+    raster's rows ``tris`` (coef None for parts without attribute
+    channels) and the instance bounds of ``instance_bbox_components``,
+    bbox (I, 4), usable (I,) and dist (I,)."""
+
+    tris: PackedTris
+    bbox: torch.Tensor
+    usable: torch.Tensor
+    dist: torch.Tensor
+
+
+SETUP_ATTRS = (0, NUM_ATTRS)   # attribute channels a part may carry
+SETUP_W_EPS = 1e-4             # setup_components' near-plane w
+
+
+def _lattice(world: torch.Tensor, T: int) -> bool:
+    """``setup_components``' test for the terrain lattice (I, S, S, 3)."""
+    return (world.ndim == 4 and world.shape[1] == world.shape[2]
+            and T == (world.shape[1] - 1) ** 2 * 2)
+
+
+def _check_setup(parts, world_to_clip: torch.Tensor) -> tuple[int, int]:
+    """Device, dtype, shape and contiguity of ``setup_packed``'s inputs;
+    returns the parts' attribute channels and triangles an instance."""
+    def fail(what):
+        raise ValueError(f"setup_packed: {what}")
+
+    dev = world_to_clip.device
+    if tuple(world_to_clip.shape) != (4, 4):
+        fail(f"world_to_clip has shape {tuple(world_to_clip.shape)}, needs "
+             f"(4, 4)")
+    if not parts:
+        fail("no parts")
+    A = T = None
+    for k, (world, attrs, valid, tri_idx) in enumerate(parts):
+        if world.ndim not in (3, 4) or world.shape[-1] != 3:
+            fail(f"part {k} world has shape {tuple(world.shape)}, needs "
+                 f"(I, V, 3) or (I, S, S, 3)")
+        I, T_k = world.shape[0], tri_idx.shape[0]
+        if T is not None and T_k != T:
+            fail(f"part {k} has {T_k} triangles an instance, part 0 {T}: "
+                 f"the raster's rows need one T")
+        T = T_k
+        A_k = attrs.shape[-1] if attrs.ndim else -1
+        if A_k not in SETUP_ATTRS:
+            fail(f"part {k} attrs has {A_k} channels, needs one of "
+                 f"{SETUP_ATTRS}")
+        if A is not None and A_k != A:
+            fail(f"part {k} attrs has {A_k} channels, part 0 {A}")
+        A = A_k
+        expect = [("world", world, world.shape, torch.float32),
+                  ("attrs", attrs, world.shape[:-1] + (A,), torch.float32),
+                  ("inst_valid", valid, (I,), torch.bool),
+                  ("tri_idx", tri_idx, (T, 3), torch.int64)]
+        for name, x, shape, dtype in expect:
+            if tuple(x.shape) != tuple(shape):
+                fail(f"part {k} {name} has shape {tuple(x.shape)}, needs "
+                     f"{tuple(shape)}")
+            if x.dtype != dtype:
+                fail(f"part {k} {name} is {x.dtype}, needs {dtype}")
+            if x.device != dev:
+                fail(f"part {k} {name} is on {x.device}, world_to_clip on "
+                     f"{dev}")
+            if not x.is_contiguous():
+                fail(f"part {k} {name} is not contiguous")
+    if world_to_clip.dtype != torch.float32:
+        fail(f"world_to_clip is {world_to_clip.dtype}, needs torch.float32")
+    if not world_to_clip.is_contiguous():
+        fail("world_to_clip is not contiguous")
+    return A, T
+
+
+def setup_packed_plain(parts, world_to_clip: torch.Tensor, width: int,
+                       height: int, y0: float | None = None) -> PackedSetup:
+    """``setup_packed`` as the plain chain: ``raster.setup_components`` and
+    ``instance_bbox_components`` a part, ``raster.shift_components_y``
+    under a band, the stacked parts concatenated, then ``pack_setup`` (8
+    attribute channels) or ``pack_vis`` (none)."""
+    setups, bboxes, usables, dists = [], [], [], []
+    for world, attrs, valid, tri_idx in parts:
+        comp = raster.setup_components(world, attrs, valid, tri_idx,
+                                       world_to_clip, width, height)
+        bbox, usable, dist = instance_bbox_components(comp, width, height,
+                                                      valid)
+        if y0 is not None:
+            bbox = bbox - bbox.new_tensor([0.0, y0, 0.0, y0])
+            comp = raster.shift_components_y(comp, y0)
+        setups.append(raster.stack_components(comp))
+        bboxes.append(bbox)
+        usables.append(usable)
+        dists.append(dist)
+    setup = TriSetup(*(torch.cat(f) for f in zip(*setups)))
+    n = sum(p[0].shape[0] for p in parts)
+    if setup.planes.shape[1] == 2:
+        vis, coef = pack_vis(setup, n), None
+    else:
+        vis, coef = pack_setup(setup, n)
+    return PackedSetup(PackedTris(vis, coef), torch.cat(bboxes),
+                       torch.cat(usables), torch.cat(dists))
+
+
+def setup_packed(parts, world_to_clip: torch.Tensor, width: int, height: int,
+                 y0: float | None = None) -> PackedSetup:
+    """Triangle setup of ``parts``, each (world, attrs, inst_valid,
+    tri_idx) as ``raster.setup_components`` takes them, instances in order:
+    the raster's packed rows and the instance bounds the work list reads.
+    ``y0``: rows and bounds rebased to the band that starts at that frame
+    row, after the bounds are taken. Parts with 8 attribute channels get
+    coefficient rows, parts with none only visibility rows. CUDA tensors
+    launch the kernel ``vrt_setup`` (csrc/setup.cu) once a part into
+    buffers allocated once, counted on ``setup_packed.launches``, with no
+    host sync; CPU tensors run ``setup_packed_plain``, which the kernel
+    equals bit for bit on the card."""
+    A, T = _check_setup(parts, world_to_clip)
+    dev = world_to_clip.device
+    if dev.type == "cpu":
+        return setup_packed_plain(parts, world_to_clip, width, height, y0)
+    if dev.type != "cuda":
+        raise ValueError(f"setup_packed: the kernel runs on a CUDA device; "
+                         f"the inputs are on {dev}")
+    return _setup_launches(parts, world_to_clip, width, height, y0, A, T)
+
+
+setup_packed.launches = 0
+
+
+def _setup_launches(parts, world_to_clip, width, height, y0, A, T):
+    """``setup_packed``'s kernel path on checked inputs: the outputs
+    allocated once and one launch of ``vrt_setup`` a part into its rows."""
+    dev = world_to_clip.device
+    n = sum(p[0].shape[0] for p in parts)
+    f32 = dict(dtype=torch.float32, device=dev)
+    vis = torch.empty((n, T, VIS_STRIDE), **f32)
+    coef = torch.empty((n, T, NUM_COEF), **f32) if A else None
+    bbox = torch.empty((n, 4), **f32)
+    usable = torch.empty((n,), dtype=torch.bool, device=dev)
+    dist = torch.empty((n,), **f32)
+    off = 0
+    for world, attrs, valid, tri_idx in parts:
+        I = world.shape[0]
+        if I == 0:
+            continue
+        side = world.shape[1] if _lattice(world, T) else 0
+        _build.launch(
+            "vrt_setup", dev, world.data_ptr(), attrs.data_ptr(), A,
+            valid.data_ptr(), tri_idx.data_ptr(), side,
+            world[0].numel() // 3, T, I, world_to_clip.data_ptr(), width,
+            height, SETUP_W_EPS, int(y0 is not None),
+            0.0 if y0 is None else float(y0),
+            vis.data_ptr() + 4 * off * T * VIS_STRIDE,
+            coef.data_ptr() + 4 * off * T * NUM_COEF if A else None,
+            bbox.data_ptr() + 16 * off, usable.data_ptr() + off,
+            dist.data_ptr() + 4 * off)
+        setup_packed.launches += 1
+        off += I
+    return PackedSetup(PackedTris(vis, coef), bbox, usable, dist)
 
 
 def _tiles(width: int, height: int, tile: int):

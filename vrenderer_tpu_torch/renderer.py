@@ -362,35 +362,22 @@ class Renderer:
 
     def _bin(self, parts, wtc, width: int, height: int, band=None):
         """Setup and binning of ``parts`` (world, attrs, valid, tri_idx),
-        instances in order: (TriSetup, instance count, work list).
+        instances in order: (``raster_cuda.PackedSetup``, work list).
         ``band=(y0, band_h)``: the instance bounds come from the
         whole-frame setup, then bounds and setup are rebased to the band's
         rows and the work list covers ``band_h`` rows."""
         cfg = self.config
         out_h = height if band is None else band[1]
-        setups, bboxes, usables, dists = [], [], [], []
         with span("Setup"):
-            for world, attrs, valid, tri_idx in parts:
-                comp = raster.setup_components(world, attrs, valid, tri_idx,
-                                               wtc, width, height)
-                bbox, usable, dist = raster_cuda.instance_bbox_components(
-                    comp, width, height, valid)
-                if band is not None:
-                    y0 = float(band[0])
-                    bbox = bbox - bbox.new_tensor([0.0, y0, 0.0, y0])
-                    comp = raster.shift_components_y(comp, y0)
-                setups.append(raster.stack_components(comp))
-                bboxes.append(bbox)
-                usables.append(usable)
-                dists.append(dist)
-            setup = raster.TriSetup(*(torch.cat(f) for f in zip(*setups)))
-            bbox, usable, dist = (torch.cat(x) for x in (bboxes, usables,
-                                                         dists))
+            setup = raster_cuda.setup_packed(
+                parts, wtc, width, height,
+                None if band is None else float(band[0]))
         with span("Bin"):
             work = raster_cuda.build_work_list(
-                bbox, usable, width, out_h, tile=cfg.raster.tile_w,
-                max_work=self.max_work, order_key=dist)
-        return setup, sum(p[0].shape[0] for p in parts), work
+                setup.bbox, setup.usable, width, out_h,
+                tile=cfg.raster.tile_w, max_work=self.max_work,
+                order_key=setup.dist)
+        return setup, work
 
     def _raster_parts(self, vc: Dict[str, torch.Tensor], params: FrameParams,
                       sh: _ShadowInputs, lock_instances=None):
@@ -436,11 +423,9 @@ class Renderer:
         instances), rebased to ``band`` if given."""
         cfg = self.config
         parts, instances = self._raster_parts(vc, params, sh, lock_instances)
-        setup, n_inst, work = self._bin(parts, vc["world_to_clip"],
-                                        cfg.width, cfg.height, band)
-        with span("Setup"):
-            packed = raster_cuda.pack_setup(setup, n_inst)
-        return packed, work, instances
+        setup, work = self._bin(parts, vc["world_to_clip"], cfg.width,
+                                cfg.height, band)
+        return setup.tris, work, instances
 
     @staticmethod
     def _setup(parts, wtc, width: int, height: int) -> raster.TriSetup:
@@ -804,10 +789,8 @@ class Renderer:
         res = self.config.shadow_resolution
         parts, wtc, shear, instances, geom = self._light_parts(
             params, camera_pos, scene_wa)
-        setup, n_inst, work = self._bin(parts, wtc, res, res)
-        with span("Setup"):
-            vis = raster_cuda.pack_vis(setup, n_inst)
-        return vis, work, wtc, shear, instances, geom
+        setup, work = self._bin(parts, wtc, res, res)
+        return setup.tris.vis, work, wtc, shear, instances, geom
 
     def _light_parts(self, params: FrameParams, camera_pos=None,
                      scene_wa=None):
